@@ -3,36 +3,47 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device, ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``) and no
-network.  Phases, each printing one JSON line; any failure raises and the
-script exits non-zero:
+network.  Three serving paths, each a registered configuration at full
+width with seeded random weights, and the kernels each one runs:
+
+* gemma3-1b — ``flash_attention`` (prefill), ``decode_attention`` (decode);
+* mamba2-130m — ``ssd_scan`` (prefill);
+* recurrentgemma-9b — ``rglru_scan`` (prefill) and, in its local
+  attention layers, ``flash_attention`` and ``decode_attention``.
+
+Phases, each printing JSON lines; any failure raises and the script exits
+non-zero:
 
 1. **build** — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into ``build/kernels``.
 2. **kernels** — each kernel against its plain PyTorch version on the
    card, fp32 and bf16: the shape grids of ``tests/test_kernels.py``,
-   head dim 8, and the serving shapes of full-width gemma3-1b (D = 256,
-   4 query heads on 1 KV head).  Tolerances are ``tests/test_kernels.py``'s
-   (atol = rtol = 2e-5 fp32, 2e-2 bf16).  Times at the serving shapes:
+   head dim 8, and the serving shapes of the three paths.  Tolerances are
+   ``tests/test_kernels.py``'s (atol = rtol = 2e-5 fp32, 2e-2 bf16); the
+   SSD scan's final state is compared too.  Times at the serving shapes:
    the kernel, its plain version, one PyTorch library call computing the
-   same function (``scaled_dot_product_attention``, a yardstick the port
-   never calls) and the card's bound for the work.
-3. **model** — full-width gemma3-1b (26 layers, seeded random weights):
-   prefill of 1024 tokens (past the 512-token window, so the ring cache's
-   roll and the windowed kernel run) and 8 decode steps through the
-   kernels, against the same weights through plain attention.  fp32
-   logits must agree to 1e-3 of their largest magnitude (summation order
-   only); in bf16 the kernel path must stay within twice the plain bf16
-   path's distance from the fp32 logits (floor 2e-2), with timings.
-4. **trace** — where a full-width bf16 step spends its time: one
-   512-token prefill and 4 decode steps at batch 1, traced with
-   ``torch.profiler``.  Per phase: wall time, host time to enqueue, device
-   busy time, the device's idle share, CUDA launches and the top device
-   kernels.
-5. **serve** — the main path: the full-width bf16 ``LmEngine`` behind
-   ``RealPlane``, per-phase profiles, then ``run_lm_policy`` for
-   ``static`` and ``packrat`` over a seeded steady-poisson trace.  Every
-   prompt must complete, both kernels must launch and no wrapper may take
-   its CPU route.  The launch counts are reset just before this phase.
+   same function where there is one (``scaled_dot_product_attention``, a
+   yardstick the port never calls; no single call computes either scan)
+   and the card's bound for the work.
+3. **model** — per path, one prompt and 8 decode steps through the
+   kernels against the same weights through the plain path: gemma3-1b
+   1024 tokens (past its 512-token window, so the ring cache rolls),
+   mamba2-130m 1000 tokens (not a chunk multiple, so the dt = 0 padding
+   runs), recurrentgemma-9b 2100 tokens (past its 2048-token window)
+   into a 4096-slot cache.  fp32 logits must agree to 1e-3 of their
+   largest magnitude (summation order only); in bf16 the kernel path
+   must stay within twice the plain bf16 path's distance from the fp32
+   logits (floor 2e-2).
+4. **trace** — per path, where a full-width bf16 step spends its time:
+   one 512-token prefill and 4 decode steps at batch 1, traced with
+   ``torch.profiler``: wall time, host time to enqueue, device busy time,
+   the device's idle share, CUDA launches and the top device kernels.
+5. **serve** — the main path, per configuration: the full-width bf16
+   ``LmEngine`` behind ``RealPlane``, per-phase profiles, then
+   ``run_lm_policy`` for ``static`` and ``packrat`` over a seeded
+   steady-poisson trace.  Every prompt must complete, every kernel of the
+   path must launch and no wrapper may take its CPU route.  The launch
+   counts are reset just before each path and read just after it.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.
@@ -40,6 +51,7 @@ last, ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -53,6 +65,24 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 SERVE_SECONDS = 8.0
 # trace phase: one prefill of TRACE_PROMPT tokens, then TRACE_DECODE steps
 TRACE_PROMPT, TRACE_DECODE, TRACE_MAX_LEN, TRACE_TOP = 512, 4, 1024, 8
+# path -> the kernels its serve block must launch
+PATHS = {"gemma3-1b": ("flash_attention", "decode_attention"),
+         "mamba2-130m": ("ssd_scan",),
+         "recurrentgemma-9b": ("rglru_scan", "flash_attention",
+                               "decode_attention")}
+# path -> (prompt tokens, cache slots) of the model check
+MODEL_CHECK = {"gemma3-1b": (1024, 2048), "mamba2-130m": (1000, 2048),
+               "recurrentgemma-9b": (2100, 4096)}
+KERNEL_ROWS = (
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:89"),
+    ("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:125"),
+    ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:72"),
+    ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+     "src/repro/kernels/rglru_scan.py:51"),
+)
 
 
 def emit(obj) -> None:
@@ -84,22 +114,35 @@ def main() -> int:
 
     kernels_rep = phase_kernels(torch)
     emit({"phase": "kernels", **kernels_rep})
-    emit({"phase": "model", **phase_model(torch)})
-    emit({"phase": "trace", **phase_trace(torch)})
+    for name in PATHS:
+        emit({"phase": "model", **phase_model(torch, name)})
+    for name in PATHS:
+        emit({"phase": "trace", **phase_trace(torch, name)})
 
-    for stats in KERNEL_STATS.values():
-        stats.reset()
-    serve_rep = phase_serve(torch)
-    launches = {n: s.launches for n, s in KERNEL_STATS.items()}
-    cpu_calls = {n: s.cpu_calls for n, s in KERNEL_STATS.items()}
-    serve_rep["launches"] = launches
-    serve_rep["cpu_calls"] = cpu_calls
-    emit({"phase": "serve", **serve_rep})
-    for name in KERNEL_STATS:
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
-        if cpu_calls[name] != 0:
-            raise AssertionError(f"{name} took its CPU route on the card")
+    launches = {n: 0 for n in KERNEL_STATS}
+    by_path = {n: {} for n in KERNEL_STATS}
+    for path, needed in PATHS.items():
+        for stats in KERNEL_STATS.values():
+            stats.reset()
+        serve_rep = phase_serve(torch, path)
+        counts = {n: s.launches for n, s in KERNEL_STATS.items()}
+        cpu_calls = {n: s.cpu_calls for n, s in KERNEL_STATS.items()}
+        _free(torch)                  # the engine went with phase_serve
+        serve_rep["launches"] = counts
+        serve_rep["cpu_calls"] = cpu_calls
+        emit({"phase": "serve", **serve_rep})
+        for name in needed:
+            if counts[name] <= 0:
+                raise AssertionError(f"{path}: {name} never launched on "
+                                     "the main path")
+        for name, n in cpu_calls.items():
+            if n != 0:
+                raise AssertionError(f"{path}: {name} took its CPU route "
+                                     "on the card")
+        for name, n in counts.items():
+            launches[name] += n
+            if n:
+                by_path[name][path] = n
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,16 +152,11 @@ def main() -> int:
           else "nvidia-smi: no output", flush=True)
     headline = kernels_rep["headline"]
     rows = []
-    for name, source, replaces in (
-            ("flash_attention",
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:89"),
-            ("decode_attention",
-             "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:125")):
+    for name, source, replaces in KERNEL_ROWS:
         h = headline[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_by_path": by_path[name],
                      "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                      "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                      "bound_by": h["bound_by"],
@@ -172,6 +210,11 @@ def _visible_pairs(S: int, window: int) -> int:
     return sum(min(i + 1, window) if window else i + 1 for i in range(S))
 
 
+def _free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------- #
@@ -192,7 +235,8 @@ def phase_kernels(torch):
                       "max_abs_err": err, "ok": ok, **extra})
         return err
 
-    # flash: tests/test_kernels.py grids, head dim 8, serving shapes
+    # flash: tests/test_kernels.py grids, head dim 8, serving shapes of
+    # gemma3-1b (4 heads on 1) and recurrentgemma-9b (16 heads on 1)
     flash = []
     for dt in ("float32", "bfloat16"):
         for B, S, H, Hkv, D in ((1, 64, 4, 4, 32), (2, 128, 4, 2, 32),
@@ -206,7 +250,9 @@ def phase_kernels(torch):
             for S in (512, 1024):
                 for window in (0, 512):
                     flash.append((dt, B, S, 4, 1, 256, window, 512))
-    timings = {"flash_attention": [], "decode_attention": []}
+        flash.append((dt, 4, 512, 16, 1, 256, 2048, 512))
+    timings = {"flash_attention": [], "decode_attention": [],
+               "ssd_scan": [], "rglru_scan": []}
     for dt, B, S, H, Hkv, D, window, blk in flash:
         dtype = getattr(torch, dt)
         q = randn((B, S, H, D), dtype)
@@ -257,6 +303,7 @@ def phase_kernels(torch):
         for B in (1, 8):
             for S in (512, 1024):
                 decode.append((dt, B, S, 4, 1, 256, 1024))
+        decode.append((dt, 4, 1024, 16, 1, 256, 1024))
     for dt, B, S, H, Hkv, D, blk in decode:
         dtype = getattr(torch, dt)
         q = randn((B, 1, H, D), dtype)
@@ -293,19 +340,92 @@ def phase_kernels(torch):
                                       iters=50),
                 "bound_ms": bound_ms, "bound_by": bound_by})
 
+    # SSD: tests/test_kernels.py grid and mamba2-130m's serving shape; the
+    # plain version is the sequential recurrence, y and the final state
+    for dt in ("float32", "bfloat16"):
+        for B, S, H, P, G, N, Q in ((1, 64, 2, 8, 1, 16, 16),
+                                    (2, 128, 4, 16, 1, 32, 32),
+                                    (1, 64, 4, 8, 2, 16, 16),
+                                    (4, 512, 24, 64, 1, 128, 64)):
+            dtype = getattr(torch, dt)
+            x = randn((B, S, H, P), dtype)
+            dts = F.softplus(randn((B, S, H), torch.float32))
+            a_log = torch.log(torch.linspace(1.0, 4.0, H, device=dev))
+            B_in = randn((B, S, G, N), dtype)
+            C_in = randn((B, S, G, N), dtype)
+            args = (x, dts, a_log, B_in, C_in)
+            y, h = ops.ssd_scan(*args, chunk=Q)
+            want_y, want_h = ref.ssd_scan_ref(*args)
+            torch.cuda.synchronize()
+            shape = {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                     "chunk": Q}
+            err = check("ssd_scan", shape, dt, y, want_y, output="y")
+            err_h = check("ssd_scan", shape, dt, h, want_h, output="state")
+            if S == 512:
+                elem = x.element_size()
+                nbytes = (elem * (2 * B * S * H * P + 2 * B * S * G * N)
+                          + 4 * (B * S * H + H + B * H * P * N))
+                flops = (2.0 * (Q * Q * N + Q * Q * P + 2 * Q * N * P)
+                         * B * H * (S // Q))
+                bound_ms, bound_by = _bound(nbytes, flops, dt)
+                timings["ssd_scan"].append({
+                    "shape": shape, "dtype": dt,
+                    "max_abs_err": max(err, err_h), "max_abs_err_y": err,
+                    "max_abs_err_state": err_h,
+                    "ms": time_ms(torch, lambda: ops.ssd_scan(
+                        *args, chunk=Q), iters=50),
+                    "plain_ms": time_ms(torch, lambda: ref.ssd_scan_ref(
+                        *args), iters=3, warmup=1),
+                    "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+
+    # RG-LRU: tests/test_kernels.py grid and recurrentgemma-9b's serving
+    # shape; a in (0, 1) as the gates make it
+    for dt in ("float32", "bfloat16"):
+        for B, S, W in ((1, 64, 16), (2, 128, 48), (1, 96, 32),
+                        (4, 512, 4096)):
+            dtype = getattr(torch, dt)
+            a = torch.sigmoid(randn((B, S, W), torch.float32)).to(dtype)
+            b = randn((B, S, W), dtype)
+            h = ops.rglru_scan(a, b)
+            want, want_final = ref.rglru_scan_ref(a, b)
+            torch.cuda.synchronize()
+            shape = {"B": B, "S": S, "W": W}
+            err = check("rglru_scan", shape, dt, h, want)
+            check("rglru_scan", shape, dt, h[:, -1], want_final,
+                  output="final state")
+            if W == 4096:
+                elem = a.element_size()
+                nbytes = 2 * elem * B * S * W + 4 * B * S * W
+                bound_ms, bound_by = _bound(nbytes, 2.0 * B * S * W, dt)
+                timings["rglru_scan"].append({
+                    "shape": shape, "dtype": dt, "max_abs_err": err,
+                    "ms": time_ms(torch, lambda: ops.rglru_scan(a, b),
+                                  iters=50),
+                    "plain_ms": time_ms(torch, lambda: ref.rglru_scan_ref(
+                        a, b), iters=5, warmup=1),
+                    "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+
     failed = [c for c in cases if not c["ok"]]
     # headline: the serving phase's largest cells in its working dtype —
     # a 512-token bf16 prefill at b=4 and a bf16 decode step at b=8
-    # against the 1024-slot global cache
+    # against gemma3-1b's 1024-slot global cache; the scans at b=4 over a
+    # 512-token prompt
     headline = {
         "flash_attention": next(
             t for t in timings["flash_attention"]
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
-            and t["shape"]["S"] == 512 and t["shape"]["window"] == 0),
+            and t["shape"]["S"] == 512 and t["shape"]["H"] == 4
+            and t["shape"]["window"] == 0),
         "decode_attention": next(
             t for t in timings["decode_attention"]
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 8
             and t["shape"]["S"] == 1024),
+        "ssd_scan": next(t for t in timings["ssd_scan"]
+                         if t["dtype"] == "bfloat16"),
+        "rglru_scan": next(t for t in timings["rglru_scan"]
+                           if t["dtype"] == "bfloat16"),
     }
     rep = {"cases": len(cases), "failed": failed,
            "max_abs_err": {f"{k}/{dt}": max(c["max_abs_err"] for c in cases
@@ -322,15 +442,17 @@ def phase_kernels(torch):
 
 
 # --------------------------------------------------------------------- #
-# phase 3: full-width gemma3-1b, kernels vs plain attention
+# phase 3: full-width models, kernels vs the plain path
 # --------------------------------------------------------------------- #
-def phase_model(torch):
-    from repro_torch.configs.gemma3_1b import GEMMA3_1B
+def phase_model(torch, name: str):
+    from repro_torch.configs import get_config
     from repro_torch.models.lm import decode_step, init_params, prefill
     dev = torch.device("cuda")
-    S, n_dec, max_len = 1024, 8, 2048
+    base = get_config(name)
+    S, max_len = MODEL_CHECK[name]
+    n_dec = 8
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, GEMMA3_1B.vocab_size, (1, S + n_dec),
+    tokens = torch.randint(0, base.vocab_size, (1, S + n_dec),
                            generator=gen).to(dev)
 
     def run(cfg, params):
@@ -353,21 +475,20 @@ def phase_model(torch):
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
 
-    rep = {"config": "gemma3-1b", "layers": GEMMA3_1B.n_layers,
-           "prompt": S, "decode_steps": n_dec, "max_len": max_len}
+    rep = {"config": name, "layers": base.n_layers, "prompt": S,
+           "decode_steps": n_dec, "max_len": max_len}
     with torch.no_grad():
-        cfg = GEMMA3_1B.with_overrides(dtype="float32",
-                                       use_pallas_kernels=True)
+        cfg = base.with_overrides(dtype="float32", use_pallas_kernels=True)
         params = init_params(cfg, 0, device=dev)
         k32, _, _ = run(cfg, params)
         p32, _, _ = run(cfg.with_overrides(use_pallas_kernels=False), params)
         del params
-        torch.cuda.empty_cache()
+        _free(torch)
         err32 = rel(k32, p32)
         rep["fp32"] = {"rel_err": err32, "tolerance": 1e-3,
                        "finite": bool(torch.isfinite(k32).all())}
 
-        cfg = GEMMA3_1B.with_overrides(use_pallas_kernels=True)   # bf16
+        cfg = base.with_overrides(use_pallas_kernels=True)       # bf16
         params = init_params(cfg, 0, device=dev)
         k16, _, _ = run(cfg, params)
         plain = cfg.with_overrides(use_pallas_kernels=False)
@@ -376,7 +497,7 @@ def phase_model(torch):
         _, k_pre, k_dec = run(cfg, params)
         _, p_pre, p_dec = run(plain, params)
         del params
-        torch.cuda.empty_cache()
+        _free(torch)
     err_k, err_p = rel(k16, p32), rel(p16, p32)
     tol16 = max(2.0 * err_p, 2e-2)
     rep["bf16"] = {"rel_err_kernels_vs_fp32": err_k,
@@ -388,10 +509,11 @@ def phase_model(torch):
                    "decode_step_ms": {"kernels": k_dec, "plain": p_dec}}
     if not (rep["fp32"]["finite"] and err32 <= 1e-3):
         emit({"phase": "model", **rep})
-        raise AssertionError(f"fp32 logits differ: {err32}")
+        raise AssertionError(f"{name}: fp32 logits differ: {err32}")
     if not (rep["bf16"]["finite"] and err_k <= tol16):
         emit({"phase": "model", **rep})
-        raise AssertionError(f"bf16 logits differ: {err_k} > {tol16}")
+        raise AssertionError(f"{name}: bf16 logits differ: {err_k} > "
+                             f"{tol16}")
     return rep
 
 
@@ -400,13 +522,18 @@ def phase_model(torch):
 # --------------------------------------------------------------------- #
 def _trace_report(prof, wall_ms, enqueue_ms, steps):
     """``wall_ms``/``enqueue_ms`` come from an untraced run of the same
-    steps; device time and launches from the traced one."""
+    steps; device time, launches and the host's time inside PyTorch
+    operators (self time, so nested operators count once; the rest of
+    the enqueue time is Python between them) from the traced one."""
     import collections
     from torch.autograd import DeviceType
     by_name = collections.Counter()
+    host_ops = collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name[:80]] += e.device_time_total / 1e3
+        else:
+            host_ops[e.name[:80]] += e.self_cpu_time_total / 1e3
     busy_ms = sum(by_name.values())
     launches = sum(1 for e in prof.events()
                    if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
@@ -418,15 +545,19 @@ def _trace_report(prof, wall_ms, enqueue_ms, steps):
             "launches_per_step": launches / steps,
             "top_kernels_ms_per_step": {
                 name: ms / steps
-                for name, ms in by_name.most_common(TRACE_TOP)}}
+                for name, ms in by_name.most_common(TRACE_TOP)},
+            "host_op_self_ms_per_step": sum(host_ops.values()) / steps,
+            "top_host_ops_ms_per_step": {
+                name: ms / steps
+                for name, ms in host_ops.most_common(TRACE_TOP)}}
 
 
-def phase_trace(torch):
+def phase_trace(torch, name: str):
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.gemma3_1b import GEMMA3_1B
+    from repro_torch.configs import get_config
     from repro_torch.models.lm import decode_step, init_params, prefill
     dev = torch.device("cuda")
-    cfg = GEMMA3_1B.with_overrides(use_pallas_kernels=True)      # bf16
+    cfg = get_config(name).with_overrides(use_pallas_kernels=True)  # bf16
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size,
                            (1, TRACE_PROMPT + TRACE_DECODE),
@@ -459,16 +590,17 @@ def phase_trace(torch):
             _, cache = run_prefill()
             run_decode(cache)
         rep_prefill = traced(run_prefill, 1)
-        # decode positions repeat across the two runs: the ring and full
-        # caches are rewritten in place at the same slots
+        # decode positions repeat across the two runs: the caches are
+        # rewritten in place at the same slots (a recurrent state moves
+        # on, which changes no shape and no launch)
         _, cache = run_prefill()
         rep_decode = traced(lambda: run_decode(cache), TRACE_DECODE)
         del params, cache
-        torch.cuda.empty_cache()
+        _free(torch)
     if rep_prefill["device_busy_ms_per_step"] <= 0 or \
             rep_decode["device_busy_ms_per_step"] <= 0:
-        raise AssertionError("the trace saw no device time")
-    return {"config": "gemma3-1b", "dtype": cfg.dtype, "batch": 1,
+        raise AssertionError(f"{name}: the trace saw no device time")
+    return {"config": name, "dtype": cfg.dtype, "batch": 1,
             "prompt": TRACE_PROMPT, "decode_steps": TRACE_DECODE,
             "prefill": rep_prefill, "decode": rep_decode}
 
@@ -476,20 +608,20 @@ def phase_trace(torch):
 # --------------------------------------------------------------------- #
 # phase 5: the main path — serve through RealPlane
 # --------------------------------------------------------------------- #
-def phase_serve(torch):
-    from repro_torch.configs.gemma3_1b import GEMMA3_1B
+def phase_serve(torch, name: str):
+    from repro_torch.configs import get_config
     from repro_torch.core.knapsack import PackratOptimizer
     from repro_torch.core.profiler import ProfileSpec, phase_profiles
-    from repro_torch.launch.bench_serving import _cap_rate, run_lm_policy
+    from repro_torch.launch.bench_serving import (REAL_DRAIN_FACTOR,
+                                                  _cap_rate, run_lm_policy)
     from repro_torch.models.serve_lm import (PHASE_DECODE, PHASE_PREFILL,
                                              PHASES, LmEngine)
     from repro_torch.serving import RealPlane
     from repro_torch.serving.scenarios import ScenarioContext, get_scenario
     units, max_batch, decode_steps, seed = 4, 4, 8, 0
-    duration = SERVE_SECONDS
+    cfg = get_config(name).with_overrides(use_pallas_kernels=True)   # bf16
     t0 = time.perf_counter()
-    engine = LmEngine(GEMMA3_1B.with_overrides(use_pallas_kernels=True),
-                      seed=seed, max_seq=1024, default_seq_bucket=512)
+    engine = LmEngine(cfg, seed=seed, max_seq=1024, default_seq_bucket=512)
     engine_s = time.perf_counter() - t0
     factory = engine.factory()
     prof_plane = RealPlane(factory, units)
@@ -498,6 +630,12 @@ def phase_serve(torch):
         PHASES, warmup=1, iters=3)
     profile_cells = prof_plane.runner_report()
     prof_plane.close()
+    # the drain (REAL_DRAIN_FACTOR of the trace) must outlast a prompt's
+    # whole chain: a prefill and its decode steps, each waiting up to the
+    # dispatcher's coalesce window of four step times
+    step_s = max(profiles[p][(units, 1)] for p in PHASES)
+    chain_s = (1 + decode_steps) * 5.0 * step_s
+    duration = max(SERVE_SECONDS, 1.25 * chain_s / REAL_DRAIN_FACTOR)
     opt = PackratOptimizer(profiles[PHASE_PREFILL])
     ctx = ScenarioContext(threads=units, optimizer=opt, duration=duration,
                           seed=seed, max_total_batch=units * max_batch)
@@ -509,7 +647,7 @@ def phase_serve(torch):
                                  min(300.0, 0.5 / max(serial, 1e-9)))
     b0 = max_batch
     slo = {p: 4.0 * profiles[p][(units, b0)] for p in PHASES}
-    rep = {"config": "gemma3-1b", "dtype": GEMMA3_1B.dtype,
+    rep = {"config": name, "dtype": cfg.dtype, "layers": cfg.n_layers,
            "units": units, "max_batch": max_batch,
            "decode_steps": decode_steps, "duration_s": duration,
            "offered_prompts": len(arrivals), "rate_capped": capped,
@@ -527,7 +665,7 @@ def phase_serve(torch):
                           initial_batch=b0, max_batch=max_batch,
                           decode_steps=decode_steps, slo_by_phase=slo,
                           reconfigure_timeout=2.0, dispatch="continuous",
-                          real_model="gemma3-1b")
+                          real_model=name)
         done = r["phases"]
         rep["policies"][policy] = {
             "completed_prompts": done[PHASE_PREFILL]["completed"],
@@ -543,7 +681,8 @@ def phase_serve(torch):
                 or done[PHASE_DECODE]["completed"]
                 != len(arrivals) * decode_steps or r["incomplete"]):
             emit({"phase": "serve", **rep})
-            raise AssertionError(f"{policy}: not every prompt completed")
+            raise AssertionError(f"{name}, {policy}: not every prompt "
+                                 "completed")
     return rep
 
 

@@ -26,13 +26,14 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the C entries' contract: dtype codes and the head dims they are built for
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+MAX_SMEM_BYTES = 232_448          # one block's shared memory on an H100
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -107,6 +108,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.decode_attention_fwd.restype = i
         lib.decode_attention_smem_bytes.argtypes = [i, i]
         lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
+    elif name == "ssd_scan":
+        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                     i, i, p]
+        lib.ssd_scan_fwd.restype = i
+        lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    elif name == "rglru_scan":
+        lib.rglru_scan_fwd.argtypes = [p, p, p, i, i, i, i, p]
+        lib.rglru_scan_fwd.restype = i
 
 
 def build_kernels() -> float:
@@ -161,6 +171,6 @@ def check(name: str, err: int) -> None:
     if err == 0:
         return
     if err == -1:
-        raise ValueError(f"{name}: no CUDA kernel for this head dim / dtype")
+        raise ValueError(f"{name}: no CUDA kernel for this shape / dtype")
     msg = library(name).kernel_error_string(err).decode()
     raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")

@@ -21,7 +21,6 @@ import torch
 from . import build
 from .ref import decode_attention_ref
 
-MAX_SMEM_BYTES = 232_448          # one block's shared memory on an H100
 TARGET_BLOCKS = 264               # two blocks per SM on an H100
 MIN_SPLIT_ROWS = 64               # two 32-row tiles
 
@@ -112,7 +111,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_kv: int = 512):
         raise ValueError(f"decode_attention: head dim {D} has no CUDA "
                          f"kernel; supported: {build.HEAD_DIMS}")
     lib = build.library("decode_attention")
-    if lib.decode_attention_smem_bytes(H // Hkv, D) > MAX_SMEM_BYTES:
+    if lib.decode_attention_smem_bytes(H // Hkv, D) > build.MAX_SMEM_BYTES:
         raise ValueError(f"decode_attention: a GQA group of {H // Hkv} "
                          f"heads at D={D} does not fit one block")
     q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), \

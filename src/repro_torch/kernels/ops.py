@@ -1,12 +1,14 @@
-"""Public wrappers for the port's attention kernels.
+"""Public wrappers for the port's kernels.
 
-Ports of ``repro/kernels/ops.py``'s ``flash_attention`` and
-``decode_attention`` with the same signatures and observable semantics:
-ragged sequences are zero-padded to the reference's block rule and the
-output is sliced back; a non-causal call with unaligned shapes raises;
-the decode cache is padded to a ``block_kv`` multiple.  ``block_q`` and
-``block_kv`` keep their meaning for padding and validation only: the
-CUDA kernels choose their own tiles.
+Ports of ``repro/kernels/ops.py``'s four wrappers with the same
+signatures and observable semantics: ragged attention sequences are
+zero-padded to the reference's block rule and the output is sliced
+back; a non-causal call with unaligned shapes raises; the decode cache
+is padded to a ``block_kv`` multiple; ``ssd_scan`` needs S to be a chunk
+multiple; ``rglru_scan`` halves its blocks until they divide S and W.
+Block sizes keep their meaning for padding and validation only: the
+CUDA kernels choose their own tiles.  One divergence: ``ssd_scan``
+returns ``(y, final_state)`` where the reference returns y.
 
 Each call runs the CUDA kernel for tensors on a card and the kernel's
 plain version for tensors on the CPU (see the kernel modules).
@@ -18,6 +20,8 @@ import torch
 
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
+from .rglru_scan import rglru_scan as _rglru_scan
+from .ssd_scan import ssd_scan  # noqa: F401  (no padding to add)
 
 
 def _pad_to(x, multiple: int, axis: int):
@@ -57,3 +61,15 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_kv: int = 512):
     kp, _ = _pad_to(k_cache, bkv, 1)
     vp, _ = _pad_to(v_cache, bkv, 1)
     return _decode_attention(q, kp, vp, lengths, block_kv=bkv)
+
+
+def rglru_scan(a, b, *, block_s: int = 128, block_w: int = 512):
+    """RG-LRU linear recurrence h_t = a_t·h_{t-1} + b_t over (B, S, W)."""
+    B, S, W = a.shape
+    bs = min(block_s, S)
+    bw = min(block_w, W)
+    while S % bs:
+        bs //= 2
+    while W % bw:
+        bw //= 2
+    return _rglru_scan(a, b, block_s=max(1, bs), block_w=max(1, bw))

@@ -1,10 +1,11 @@
-"""Attention-family layer blocks in PyTorch and the block dispatcher.
+"""Decoder layer blocks in PyTorch and the block dispatcher.
 
-A port of the attention half of ``repro/models/blocks.py``: the global
-(ATTN) and sliding-window (LOCAL_ATTN) decoder blocks with qkv bias,
-qk-norm, sandwich norms, the full KV cache and the ring cache.  The
-other kinds (ENC/DEC, MLA, SSM, RG-LRU) come with later slices and raise
-``NotImplementedError`` here.
+A port of ``repro/models/blocks.py`` for the attention family and the
+recurrent kinds: the global (ATTN) and sliding-window (LOCAL_ATTN)
+decoder blocks with qkv bias, qk-norm, sandwich norms, the full KV cache
+and the ring cache; the Mamba2 (SSM) and Griffin RG-LRU (RGLRU) blocks
+with their state and conv caches.  The other kinds (ENC/DEC, MLA) come
+with later slices and raise ``NotImplementedError`` here.
 
 The functional contract is the reference's:
 
@@ -17,8 +18,11 @@ decode donates its cache buffers to the same effect); the returned cache
 is the same dict, written.
 
 ``cfg.use_pallas_kernels`` keeps its name: in the port it routes prefill
-through the CUDA flash-attention kernel and decode through the CUDA
-flash-decode kernel (``repro_torch.kernels.ops``).
+through the CUDA flash-attention kernel, decode through the CUDA
+flash-decode kernel, and the SSD and RG-LRU scans of prefill and
+training through the CUDA ``ssd_scan`` and ``rglru_scan`` kernels
+(``repro_torch.kernels.ops``).  The reference's recurrent blocks ignore
+the flag.
 """
 
 from __future__ import annotations
@@ -27,12 +31,15 @@ from typing import Dict, Optional
 
 import torch
 
-from ..configs.base import ATTN, LOCAL_ATTN, ModelConfig
+from ..configs.base import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
 from .common import (apply_mlp, apply_norm, apply_rope, blocked_attention,
                      decode_attention, dense_init, init_mlp, init_norm,
                      rms_norm)
+from .rglru import apply_rglru_block, init_rglru_block, init_rglru_cache
+from .ssm import apply_ssm_block, init_ssm_block, init_ssm_cache
 
-_PORTED = (ATTN, LOCAL_ATTN)
+_ATTN_FAMILY = (ATTN, LOCAL_ATTN)
+_RECURRENT = (SSM, RGLRU)
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -223,24 +230,70 @@ def apply_attn_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
 
 
 # ===================================================================== #
+# recurrent kinds: thin wrappers adding pre-norm + MLP halves
+# ===================================================================== #
+def init_recurrent_block(gen, cfg: ModelConfig, kind: str) -> Dict:
+    dtype = torch_dtype(cfg)
+    dev = gen.device
+    if kind == SSM:
+        # Mamba2 blocks are norm + mixer only (no separate MLP)
+        return {
+            "pre_mix": init_norm(cfg.d_model, cfg.norm, dev),
+            "mixer": init_ssm_block(gen, cfg, dtype),
+        }
+    return {
+        "pre_mix": init_norm(cfg.d_model, cfg.norm, dev),
+        "mixer": init_rglru_block(gen, cfg, dtype),
+        "pre_mlp": init_norm(cfg.d_model, cfg.norm, dev),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, gated=_gated(cfg),
+                        dtype=dtype),
+    }
+
+
+def apply_recurrent_block(params, x, cfg: ModelConfig, kind: str, *,
+                          mode: str, cache: Optional[Dict] = None):
+    res = x
+    h = apply_norm(params["pre_mix"], x, cfg.norm, cfg.norm_eps)
+    if kind == SSM:
+        out, cache = apply_ssm_block(params["mixer"], h, cfg, mode=mode,
+                                     cache=cache)
+        return res + out, cache
+    out, cache = apply_rglru_block(params["mixer"], h, cfg, mode=mode,
+                                   cache=cache)
+    x = res + out
+    res = x
+    h = apply_norm(params["pre_mlp"], x, cfg.norm, cfg.norm_eps)
+    return res + apply_mlp(params["mlp"], h, cfg.act, gated=_gated(cfg)), cache
+
+
+# ===================================================================== #
 # dispatcher
 # ===================================================================== #
 def init_block(gen, cfg: ModelConfig, kind: str) -> Dict:
-    if kind in _PORTED:
+    if kind in _ATTN_FAMILY:
         return init_attn_block(gen, cfg, kind)
+    if kind in _RECURRENT:
+        return init_recurrent_block(gen, cfg, kind)
     raise _not_ported(kind)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device=None) -> Optional[Dict]:
-    if kind in _PORTED:
+    if kind in _ATTN_FAMILY:
         return init_attn_cache(cfg, kind, batch, max_len, device)
+    if kind == SSM:
+        return init_ssm_cache(cfg, batch, torch_dtype(cfg), device)
+    if kind == RGLRU:
+        return init_rglru_cache(cfg, batch, torch_dtype(cfg), device)
     raise _not_ported(kind)
 
 
 def apply_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
                 positions=None, pos=None, cache=None):
-    if kind in _PORTED:
+    if kind in _ATTN_FAMILY:
         return apply_attn_block(params, x, cfg, kind, mode=mode,
                                 positions=positions, pos=pos, cache=cache)
+    if kind in _RECURRENT:
+        return apply_recurrent_block(params, x, cfg, kind, mode=mode,
+                                     cache=cache)
     raise _not_ported(kind)

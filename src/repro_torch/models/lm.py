@@ -1,8 +1,9 @@
 """Decoder LM assembly in PyTorch: embeddings → layer stack → head.
 
 A port of ``repro/models/lm.py`` for decoder-only configurations whose
-blocks are ported (the attention family); encoder-decoder and vision
-inputs come with a later slice and raise ``NotImplementedError``.
+blocks are ported (the attention family, Mamba2 SSM and RG-LRU);
+encoder-decoder and vision inputs come with a later slice and raise
+``NotImplementedError``.
 
 The layer stack is ``prefix + pattern × n_repeats + suffix``.  Both
 parameter layouts of the reference are accepted: unrolled (a list of
@@ -57,9 +58,12 @@ def _tree_map(fn, tree):
 
 
 def _stack(trees: List[PyTree]) -> PyTree:
+    """Stack same-structured trees leaf by leaf.  The source dicts give up
+    each leaf as it is stacked, so at most one leaf is held twice (a
+    full-width 9B model would otherwise peak at twice its weights)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
     return torch.stack(trees)
 
 

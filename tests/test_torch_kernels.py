@@ -1,4 +1,4 @@
-"""The port's attention kernels against the JAX reference.
+"""The port's kernels against the JAX reference.
 
 On the CPU the port's wrappers compute their plain PyTorch versions; the
 same seeded numpy inputs go through the reference's Pallas kernels (in
@@ -276,6 +276,12 @@ def test_cpu_tensors_take_the_plain_route_and_launch_nothing():
     before = {n: (s.launches, s.cpu_calls) for n, s in KERNEL_STATS.items()}
     ops.flash_attention(q, k, v)
     ops.decode_attention(q[:, :1], k, v, torch.full((B,), S))
+    x = q.reshape(B, S, H * D // 8, 8)
+    ops.ssd_scan(x, torch.rand((B, S, x.shape[2])), torch.zeros(x.shape[2]),
+                 k[:, :, :, :8], v[:, :, :, :8], chunk=16)
+    ops.rglru_scan(torch.sigmoid(k[..., 0]), v[..., 0])
+    assert sorted(KERNEL_STATS) == ["decode_attention", "flash_attention",
+                                    "rglru_scan", "ssd_scan"]
     for name, stats in KERNEL_STATS.items():
         assert stats.launches == before[name][0]
         assert stats.cpu_calls == before[name][1] + 1
@@ -309,3 +315,45 @@ def test_cuda_decode_attention_matches_plain(cuda, B, S, H, Hkv, D, dtype):
     got = ops.decode_attention(q, kc, vc, lengths, block_kv=32)
     want = ref.decode_attention_ref(q, kc, vc, lengths)
     _close(got.cpu(), want.cpu().float().numpy(), dtype)
+
+
+SSD_GRID = [
+    (1, 64, 2, 8, 1, 16, 16),
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 64, 4, 8, 2, 16, 16),       # grouped B/C
+    (4, 512, 24, 64, 1, 128, 64),   # mamba2-130m serving shape
+]
+RGLRU_GRID = [
+    (1, 64, 16),
+    (2, 128, 48),
+    (1, 96, 32),
+    (4, 512, 4096),                 # recurrentgemma-9b serving shape
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_GRID)
+def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, B_in, C_in, dt = _inputs(6, (B, S, H, P), (B, S, G, N), (B, S, G, N),
+                                (B, S, H))
+    x, B_in, C_in = (_t(a, dtype).to(cuda) for a in (x, B_in, C_in))
+    dt = torch.nn.functional.softplus(_t(dt)).to(cuda)
+    a_log = torch.log(torch.linspace(1.0, 4.0, H)).to(cuda)
+    y, h = ops.ssd_scan(x, dt, a_log, B_in, C_in, chunk=chunk)
+    want_y, want_h = ref.ssd_scan_ref(x, dt, a_log, B_in, C_in)
+    _close(y.cpu(), want_y.cpu().float().numpy(), dtype)
+    _close(h.cpu(), want_h.cpu().numpy(), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W", RGLRU_GRID)
+def test_cuda_rglru_scan_matches_plain(cuda, B, S, W, dtype):
+    a, b = _inputs(7, (B, S, W), (B, S, W))
+    a = torch.sigmoid(_t(a)).to(dtype).to(cuda)
+    b = _t(b, dtype).to(cuda)
+    h = ops.rglru_scan(a, b)
+    assert h.dtype == torch.float32
+    want, final = ref.rglru_scan_ref(a, b)
+    _close(h.cpu(), want.cpu().numpy(), dtype)
+    _close(h[:, -1].cpu(), final.cpu().numpy(), dtype)

@@ -217,8 +217,8 @@ def test_kernel_route_matches_reference_kernels():
 
 def test_unported_kinds_raise():
     from repro_torch.models.blocks import init_block
-    cfg = get_config("mamba2-130m").reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="ssm not yet ported"):
-        init_block(torch.Generator(), cfg, cfg.pattern[0])
+    cfg = get_config("deepseek-v2-236b").reduced(dtype="float32")
+    with pytest.raises(NotImplementedError, match="mla not yet ported"):
+        init_block(torch.Generator(), cfg, cfg.prefix[0])
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         build_model(get_config("seamless-m4t-medium").reduced())

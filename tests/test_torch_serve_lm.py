@@ -233,8 +233,10 @@ def test_run_lm_policy_report_keys_match_reference(engine):
         assert got["phases"][PHASE_DECODE]["completed"] == 2 * len(arrivals)
         assert got["incomplete"] == 0 and want["incomplete"] == 0
         assert _key_tree(got) == _key_tree(want)
-    # the CPU engine went through the kernels' plain versions
-    assert all(s.cpu_calls > before[n] for n, s in KERNEL_STATS.items())
+    # the CPU engine went through the attention kernels' plain versions
+    # (lm-tiny has no recurrent layer)
+    assert all(KERNEL_STATS[n].cpu_calls > before[n]
+               for n in ("flash_attention", "decode_attention"))
 
 
 def test_launcher_rejects_unported_modes():
