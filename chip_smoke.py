@@ -18,13 +18,21 @@ non-zero:
    csrc`` (one ``nvcc`` per source, in parallel) into ``build/kernels``.
 2. **kernels** — each kernel against its plain PyTorch version on the
    card, fp32 and bf16: the shape grids of ``tests/test_kernels.py``,
-   head dim 8, and the serving shapes of the three paths.  Tolerances are
-   ``tests/test_kernels.py``'s (atol = rtol = 2e-5 fp32, 2e-2 bf16); the
-   SSD scan's final state is compared too.  Times at the serving shapes:
-   the kernel, its plain version, one PyTorch library call computing the
-   same function where there is one (``scaled_dot_product_attention``, a
-   yardstick the port never calls; no single call computes either scan)
-   and the card's bound for the work.
+   head dim 8, GQA groups 1-16, windows, partial tiles, a single chunk,
+   and the serving shapes of the three paths at B = 1 and 4 (decode 1
+   and 8).  ``flash_attention`` and ``ssd_scan`` have two routes (CUDA
+   cores; tensor cores for bf16): every case runs through the public
+   wrapper and through each route that takes it, forced, and the
+   wrapper's choice by shape must match the Python route rule bit for
+   bit.  Tolerances are ``tests/test_kernels.py``'s (atol = rtol = 2e-5
+   fp32, 2e-2 bf16); the SSD scan's final state is compared too.  Times
+   at the serving shapes: the wrapper and each route, its plain version,
+   one PyTorch library call computing the same function where there is
+   one (``scaled_dot_product_attention``, a yardstick the port never
+   calls; no single call computes either scan) and the card's bound for
+   the work.  ``time_ms`` times the device alone: a sleep kernel holds
+   the device while the host queues the whole batch, so ``ms`` is not the
+   host's cadence, which ``host_ms`` reports beside it.
 3. **model** — per path, one prompt and 8 decode steps through the
    kernels against the same weights through the plain path: gemma3-1b
    1024 tokens (past its 512-token window, so the ring cache rolls),
@@ -42,15 +50,19 @@ non-zero:
    ``LmEngine`` behind ``RealPlane``, per-phase profiles, then
    ``run_lm_policy`` for ``static`` and ``packrat`` over a seeded
    steady-poisson trace.  Every prompt must complete, every kernel of the
-   path must launch and no wrapper may take its CPU route.  The launch
-   counts are reset just before each path and read just after it.
+   path must launch, the bf16 ``flash_attention`` and ``ssd_scan`` calls
+   must all take the tensor-core route, and no wrapper may take its CPU
+   route.  The launch counts (by route) are reset just before each path
+   and read just after it.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.
+last, ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
+phase 2 (a quick check after editing a kernel).
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import subprocess
@@ -70,6 +82,11 @@ PATHS = {"gemma3-1b": ("flash_attention", "decode_attention"),
          "mamba2-130m": ("ssd_scan",),
          "recurrentgemma-9b": ("rglru_scan", "flash_attention",
                                "decode_attention")}
+# path -> the kernels whose bf16 serving calls must all take the
+# tensor-core route
+TENSOR_CORE_PATHS = {"gemma3-1b": ("flash_attention",),
+                     "mamba2-130m": ("ssd_scan",),
+                     "recurrentgemma-9b": ("flash_attention",)}
 # path -> (prompt tokens, cache slots) of the model check
 MODEL_CHECK = {"gemma3-1b": (1024, 2048), "mamba2-130m": (1000, 2048),
                "recurrentgemma-9b": (2100, 4096)}
@@ -89,7 +106,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build the kernels and run the kernels phase "
+                         "only (a quick check after editing a kernel); "
+                         "prints no final ok line")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -114,35 +138,45 @@ def main() -> int:
 
     kernels_rep = phase_kernels(torch)
     emit({"phase": "kernels", **kernels_rep})
+    if args.kernels_only:
+        return 0
     for name in PATHS:
         emit({"phase": "model", **phase_model(torch, name)})
     for name in PATHS:
         emit({"phase": "trace", **phase_trace(torch, name)})
 
-    launches = {n: 0 for n in KERNEL_STATS}
+    launches = {n: {} for n in KERNEL_STATS}
     by_path = {n: {} for n in KERNEL_STATS}
     for path, needed in PATHS.items():
         for stats in KERNEL_STATS.values():
             stats.reset()
         serve_rep = phase_serve(torch, path)
-        counts = {n: s.launches for n, s in KERNEL_STATS.items()}
+        counts = {n: dict(s.launches_by_route)
+                  for n, s in KERNEL_STATS.items()}
         cpu_calls = {n: s.cpu_calls for n, s in KERNEL_STATS.items()}
         _free(torch)                  # the engine went with phase_serve
-        serve_rep["launches"] = counts
+        serve_rep["launches_by_route"] = counts
         serve_rep["cpu_calls"] = cpu_calls
         emit({"phase": "serve", **serve_rep})
         for name in needed:
-            if counts[name] <= 0:
+            if sum(counts[name].values()) <= 0:
                 raise AssertionError(f"{path}: {name} never launched on "
                                      "the main path")
+        for name in TENSOR_CORE_PATHS[path]:
+            if counts[name].get("tensor_core", 0) <= 0 \
+                    or counts[name].get("cuda_core", 0):
+                raise AssertionError(f"{path}: bf16 {name} calls must all "
+                                     "take the tensor-core route, got "
+                                     f"{counts[name]}")
         for name, n in cpu_calls.items():
             if n != 0:
                 raise AssertionError(f"{path}: {name} took its CPU route "
                                      "on the card")
-        for name, n in counts.items():
-            launches[name] += n
-            if n:
-                by_path[name][path] = n
+        for name, by_route in counts.items():
+            for r, n in by_route.items():
+                launches[name][r] = launches[name].get(r, 0) + n
+            if by_route:
+                by_path[name][path] = by_route
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -155,12 +189,17 @@ def main() -> int:
     for name, source, replaces in KERNEL_ROWS:
         h = headline[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": sum(launches[name].values()),
+                     "launches_by_route": launches[name],
                      "launches_by_path": by_path[name],
+                     "kernel_route": h["route"],
                      "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+                     "host_ms": h["host_ms"],
                      "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                      "bound_by": h["bound_by"],
-                     "library_ms": h["library_ms"], "shape": h["shape"]})
+                     "library_ms": h["library_ms"], "shape": h["shape"],
+                     "routes": h.get("routes", {})})
     emit({"kernels": rows})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -183,19 +222,80 @@ def _compare(torch, got, want, dtype_name):
     return float(err.max()), ok
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``."""
+@functools.lru_cache(maxsize=None)
+def _cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card, timed
+    once with CUDA events."""
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Device time of one call (``ms``) and the host's time to issue one
+    (``host_ms``).
+
+    The host time is ``iters`` calls issued back to back on the host
+    clock.  Then a sleep kernel at least twice that long is enqueued
+    before the start event, and the same calls are issued again between
+    two CUDA events: the whole batch is queued while the device sleeps,
+    so the events time the device alone, not the host's cadence.  If the
+    host still took longer than the sleep, the sleep doubles and the
+    batch repeats (at most 3 times; ``covered`` says whether it held).
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sleep_ms = max(2.0 * host_ms, 1.0)
+    for _ in range(3):
+        torch.cuda._sleep(int(sleep_ms * _cycles_per_ms(torch)))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        covered = issued_ms < sleep_ms
+        if covered:
+            break
+        sleep_ms = 2.0 * max(sleep_ms, issued_ms)
+    return {"ms": start.elapsed_time(end) / iters, "host_ms": host_ms / iters,
+            "covered": covered}
+
+
+def kernel_breakdown(torch, fn, iters: int = 20) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls."""
+    import collections
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            by_name[name.split("(")[0][:60]] += e.device_time_total / 1e3
+    return {name: ms / iters for name, ms in by_name.most_common()}
 
 
 def _bound(bytes_moved: float, flops: float, dtype_name: str):
@@ -220,7 +320,9 @@ def _free(torch) -> None:
 # --------------------------------------------------------------------- #
 def phase_kernels(torch):
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -235,22 +337,39 @@ def phase_kernels(torch):
                       "max_abs_err": err, "ok": ok, **extra})
         return err
 
-    # flash: tests/test_kernels.py grids, head dim 8, serving shapes of
-    # gemma3-1b (4 heads on 1) and recurrentgemma-9b (16 heads on 1)
+    def same_route(kind, shape, dtype_name, rule, auto, forced):
+        """The C entry's choice by shape launches the same kernel as the
+        Python rule: the outputs agree bit for bit."""
+        ok = all(torch.equal(a, f) for a, f in zip(auto, forced))
+        cases.append({"kernel": kind, "shape": shape, "dtype": dtype_name,
+                      "check": f"by shape == forced {rule}", "ok": ok})
+
+    def routes_for(rule):
+        """Every route that takes a case: the CUDA-core kernels take every
+        shape the wrapper accepts, the tensor cores those of the rule."""
+        return (("cuda_core", "tensor_core") if rule == "tensor_core"
+                else ("cuda_core",))
+
+    # flash: tests/test_kernels.py grids, head dim 8, GQA groups 1, 2, 4,
+    # 8 and 16, windows 16/48/100, one partial 64-row tile (S = 16, 32,
+    # 48 after padding), and the serving shapes of gemma3-1b (4 heads on
+    # 1) and recurrentgemma-9b (16 heads on 1, window 2048) at B = 1, 4
     flash = []
-    for dt in ("float32", "bfloat16"):
+    for dt in TOL:
         for B, S, H, Hkv, D in ((1, 64, 4, 4, 32), (2, 128, 4, 2, 32),
                                 (1, 96, 8, 1, 16), (2, 256, 2, 2, 64),
-                                (2, 64, 2, 1, 8), (1, 80, 4, 2, 8)):
+                                (2, 64, 2, 1, 8), (1, 80, 4, 2, 8),
+                                (2, 128, 4, 1, 64), (1, 128, 16, 1, 64)):
             flash.append((dt, B, S, H, Hkv, D, 0, 32))
-    for window in (16, 48, 100):
-        flash.append(("float32", 2, 128, 4, 1, 32, window, 32))
-    for dt in ("float32", "bfloat16"):
+        for window in (16, 48, 100):
+            flash.append((dt, 2, 128, 4, 1, 32, window, 32))
+        for S in (16, 32, 48):
+            flash.append((dt, 2, S, 4, 2, 32, 0, 16))
         for B in (1, 4):
             for S in (512, 1024):
                 for window in (0, 512):
                     flash.append((dt, B, S, 4, 1, 256, window, 512))
-        flash.append((dt, 4, 512, 16, 1, 256, 2048, 512))
+            flash.append((dt, B, 512, 16, 1, 256, 2048, 512))
     timings = {"flash_attention": [], "decode_attention": [],
                "ssd_scan": [], "rglru_scan": []}
     for dt, B, S, H, Hkv, D, window, blk in flash:
@@ -258,13 +377,25 @@ def phase_kernels(torch):
         q = randn((B, S, H, D), dtype)
         k = randn((B, S, Hkv, D), dtype)
         v = randn((B, S, Hkv, D), dtype)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
         got = ops.flash_attention(q, k, v, causal=True, window=window,
                                   block_q=blk, block_kv=blk)
-        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         shape = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
                  "window": window}
-        err = check("flash_attention", shape, dt, got, want)
+        rule = flash_mod.route(dt, D)
+        err = check("flash_attention", shape, dt, got, want, route=rule,
+                    via="ops.flash_attention")
+        forced, errs = {}, {}
+        for r in routes_for(rule):
+            forced[r] = flash_mod.launch(q, k, v, causal=True,
+                                         window=window, force=r)
+            torch.cuda.synchronize()
+            errs[r] = check("flash_attention", shape, dt, forced[r], want,
+                            route=r)
+        same_route("flash_attention", shape, dt, rule,
+                   [flash_mod.launch(q, k, v, causal=True, window=window)],
+                   [forced[rule]])
         if D == 256:
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
@@ -285,18 +416,27 @@ def phase_kernels(torch):
             flops = 4.0 * D * B * H * _visible_pairs(S, window)
             nbytes = elem * (2 * B * S * H * D + 2 * B * S * Hkv * D)
             bound_ms, bound_by = _bound(nbytes, flops, dt)
+            wrapper = time_ms(torch, lambda: ops.flash_attention(
+                q, k, v, causal=True, window=window, block_q=blk,
+                block_kv=blk))
+            plain = time_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, window=window))
+            library = time_ms(torch, lib)
             timings["flash_attention"].append({
-                "shape": shape, "dtype": dt, "max_abs_err": err,
-                "ms": time_ms(torch, lambda: ops.flash_attention(
-                    q, k, v, causal=True, window=window, block_q=blk,
-                    block_kv=blk)),
-                "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(
-                    q, k, v, causal=True, window=window)),
-                "library_ms": time_ms(torch, lib),
+                "shape": shape, "dtype": dt, "route": rule,
+                "max_abs_err": err, "ms": wrapper["ms"],
+                "host_ms": wrapper["host_ms"], "covered": wrapper["covered"],
+                "routes": {r: {"max_abs_err": errs[r], **time_ms(
+                    torch, lambda r=r: flash_mod.launch(
+                        q, k, v, causal=True, window=window, force=r))}
+                    for r in routes_for(rule)},
+                "library_kernels_ms": kernel_breakdown(torch, lib),
+                "plain_ms": plain["ms"], "library_ms": library["ms"],
+                "library_host_ms": library["host_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by})
 
     decode = []
-    for dt in ("float32", "bfloat16"):
+    for dt in TOL:
         for B, S, H, Hkv, D in ((2, 128, 4, 2, 32), (1, 256, 8, 8, 64),
                                 (3, 96, 4, 1, 16), (2, 64, 2, 1, 8)):
             decode.append((dt, B, S, H, Hkv, D, 32))
@@ -316,7 +456,8 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         shape = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
                  "lengths": lengths.tolist()}
-        err = check("decode_attention", shape, dt, got, want)
+        err = check("decode_attention", shape, dt, got, want,
+                    route="cuda_core")
         if D == 256:
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(kc, H // Hkv, 2).transpose(1, 2)
@@ -328,24 +469,34 @@ def phase_kernels(torch):
             flops = 4.0 * D * H * total
             nbytes = elem * (2 * B * H * D + 2 * Hkv * D * total) + 4 * B
             bound_ms, bound_by = _bound(nbytes, flops, dt)
+            wrapper = time_ms(torch, lambda: ops.decode_attention(
+                q, kc, vc, lengths, block_kv=1024), iters=50)
+            library = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), iters=50)
             timings["decode_attention"].append({
-                "shape": shape, "dtype": dt, "max_abs_err": err,
-                "ms": time_ms(torch, lambda: ops.decode_attention(
-                    q, kc, vc, lengths, block_kv=1024), iters=50),
+                "shape": shape, "dtype": dt, "route": "cuda_core",
+                "max_abs_err": err, "ms": wrapper["ms"],
+                "host_ms": wrapper["host_ms"], "covered": wrapper["covered"],
                 "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(
-                    q, kc, vc, lengths), iters=50),
-                "library_ms": time_ms(torch, lambda:
-                                      F.scaled_dot_product_attention(
-                                          qt, kt, vt, attn_mask=mask),
-                                      iters=50),
+                    q, kc, vc, lengths), iters=50)["ms"],
+                "device_kernels_ms": kernel_breakdown(
+                    torch, lambda: ops.decode_attention(
+                        q, kc, vc, lengths, block_kv=1024)),
+                "library_ms": library["ms"],
+                "library_host_ms": library["host_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by})
 
-    # SSD: tests/test_kernels.py grid and mamba2-130m's serving shape; the
-    # plain version is the sequential recurrence, y and the final state
-    for dt in ("float32", "bfloat16"):
+    # SSD: tests/test_kernels.py grid, a grouped case with P = 16 (the
+    # tensor cores take it), one chunk (S = chunk), and mamba2-130m's
+    # serving shape at B = 1, 4; the plain version is the sequential
+    # recurrence, y and the final state
+    for dt in TOL:
         for B, S, H, P, G, N, Q in ((1, 64, 2, 8, 1, 16, 16),
                                     (2, 128, 4, 16, 1, 32, 32),
                                     (1, 64, 4, 8, 2, 16, 16),
+                                    (1, 64, 4, 16, 2, 16, 16),
+                                    (2, 64, 4, 16, 1, 32, 64),
+                                    (1, 512, 24, 64, 1, 128, 64),
                                     (4, 512, 24, 64, 1, 128, 64)):
             dtype = getattr(torch, dt)
             x = randn((B, S, H, P), dtype)
@@ -354,13 +505,27 @@ def phase_kernels(torch):
             B_in = randn((B, S, G, N), dtype)
             C_in = randn((B, S, G, N), dtype)
             args = (x, dts, a_log, B_in, C_in)
-            y, h = ops.ssd_scan(*args, chunk=Q)
             want_y, want_h = ref.ssd_scan_ref(*args)
+            y, h = ops.ssd_scan(*args, chunk=Q)
             torch.cuda.synchronize()
             shape = {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
                      "chunk": Q}
-            err = check("ssd_scan", shape, dt, y, want_y, output="y")
-            err_h = check("ssd_scan", shape, dt, h, want_h, output="state")
+            rule = ssd_mod.route(dt, P, N, Q)
+            err = check("ssd_scan", shape, dt, y, want_y, output="y",
+                        route=rule, via="ops.ssd_scan")
+            err_h = check("ssd_scan", shape, dt, h, want_h, output="state",
+                          route=rule, via="ops.ssd_scan")
+            forced, errs = {}, {}
+            for r in routes_for(rule):
+                forced[r] = ssd_mod.launch(*args, chunk=Q, force=r)
+                torch.cuda.synchronize()
+                errs[r] = {
+                    "y": check("ssd_scan", shape, dt, forced[r][0], want_y,
+                               output="y", route=r),
+                    "state": check("ssd_scan", shape, dt, forced[r][1],
+                                   want_h, output="state", route=r)}
+            same_route("ssd_scan", shape, dt, rule,
+                       ssd_mod.launch(*args, chunk=Q), forced[rule])
             if S == 512:
                 elem = x.element_size()
                 nbytes = (elem * (2 * B * S * H * P + 2 * B * S * G * N)
@@ -368,22 +533,30 @@ def phase_kernels(torch):
                 flops = (2.0 * (Q * Q * N + Q * Q * P + 2 * Q * N * P)
                          * B * H * (S // Q))
                 bound_ms, bound_by = _bound(nbytes, flops, dt)
+                wrapper = time_ms(torch, lambda: ops.ssd_scan(
+                    *args, chunk=Q), iters=50)
                 timings["ssd_scan"].append({
-                    "shape": shape, "dtype": dt,
+                    "shape": shape, "dtype": dt, "route": rule,
                     "max_abs_err": max(err, err_h), "max_abs_err_y": err,
-                    "max_abs_err_state": err_h,
-                    "ms": time_ms(torch, lambda: ops.ssd_scan(
-                        *args, chunk=Q), iters=50),
+                    "max_abs_err_state": err_h, "ms": wrapper["ms"],
+                    "host_ms": wrapper["host_ms"],
+                    "covered": wrapper["covered"],
+                    "routes": {r: {"max_abs_err": errs[r], **time_ms(
+                        torch, lambda r=r: ssd_mod.launch(
+                            *args, chunk=Q, force=r), iters=50)}
+                        for r in routes_for(rule)},
+                    "device_kernels_ms": kernel_breakdown(
+                        torch, lambda: ops.ssd_scan(*args, chunk=Q)),
                     "plain_ms": time_ms(torch, lambda: ref.ssd_scan_ref(
-                        *args), iters=3, warmup=1),
+                        *args), iters=3, warmup=1)["ms"],
                     "library_ms": None,
                     "bound_ms": bound_ms, "bound_by": bound_by})
 
     # RG-LRU: tests/test_kernels.py grid and recurrentgemma-9b's serving
-    # shape; a in (0, 1) as the gates make it
-    for dt in ("float32", "bfloat16"):
+    # shape at B = 1, 4; a in (0, 1) as the gates make it
+    for dt in TOL:
         for B, S, W in ((1, 64, 16), (2, 128, 48), (1, 96, 32),
-                        (4, 512, 4096)):
+                        (1, 512, 4096), (4, 512, 4096)):
             dtype = getattr(torch, dt)
             a = torch.sigmoid(randn((B, S, W), torch.float32)).to(dtype)
             b = randn((B, S, W), dtype)
@@ -391,19 +564,22 @@ def phase_kernels(torch):
             want, want_final = ref.rglru_scan_ref(a, b)
             torch.cuda.synchronize()
             shape = {"B": B, "S": S, "W": W}
-            err = check("rglru_scan", shape, dt, h, want)
+            err = check("rglru_scan", shape, dt, h, want, route="cuda_core")
             check("rglru_scan", shape, dt, h[:, -1], want_final,
-                  output="final state")
+                  output="final state", route="cuda_core")
             if W == 4096:
                 elem = a.element_size()
                 nbytes = 2 * elem * B * S * W + 4 * B * S * W
                 bound_ms, bound_by = _bound(nbytes, 2.0 * B * S * W, dt)
+                wrapper = time_ms(torch, lambda: ops.rglru_scan(a, b),
+                                  iters=50)
                 timings["rglru_scan"].append({
-                    "shape": shape, "dtype": dt, "max_abs_err": err,
-                    "ms": time_ms(torch, lambda: ops.rglru_scan(a, b),
-                                  iters=50),
+                    "shape": shape, "dtype": dt, "route": "cuda_core",
+                    "max_abs_err": err, "ms": wrapper["ms"],
+                    "host_ms": wrapper["host_ms"],
+                    "covered": wrapper["covered"],
                     "plain_ms": time_ms(torch, lambda: ref.rglru_scan_ref(
-                        a, b), iters=5, warmup=1),
+                        a, b), iters=5, warmup=1)["ms"],
                     "library_ms": None,
                     "bound_ms": bound_ms, "bound_by": bound_by})
 
@@ -423,17 +599,24 @@ def phase_kernels(torch):
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 8
             and t["shape"]["S"] == 1024),
         "ssd_scan": next(t for t in timings["ssd_scan"]
-                         if t["dtype"] == "bfloat16"),
+                         if t["dtype"] == "bfloat16"
+                         and t["shape"]["B"] == 4),
         "rglru_scan": next(t for t in timings["rglru_scan"]
-                           if t["dtype"] == "bfloat16"),
+                           if t["dtype"] == "bfloat16"
+                           and t["shape"]["B"] == 4),
     }
     rep = {"cases": len(cases), "failed": failed,
-           "max_abs_err": {f"{k}/{dt}": max(c["max_abs_err"] for c in cases
-                                           if c["kernel"] == k
-                                           and c["dtype"] == dt)
-                           for k in timings for dt in TOL},
+           "max_abs_err": {f"{k}/{dt}/{r}": max(
+               c["max_abs_err"] for c in cases if c["kernel"] == k
+               and c["dtype"] == dt and c.get("route") == r
+               and "max_abs_err" in c)
+               for k in timings for dt in TOL
+               for r in ("cuda_core", "tensor_core")
+               if any(c["kernel"] == k and c["dtype"] == dt
+                      and c.get("route") == r for c in cases)},
            "tolerance": {dt: {"atol": a, "rtol": r}
                          for dt, (a, r) in TOL.items()},
+           "sleep_cycles_per_ms": _cycles_per_ms(torch),
            "timings": timings, "headline": headline}
     if failed:
         emit({"phase": "kernels", **rep})

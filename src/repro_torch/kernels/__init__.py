@@ -1,13 +1,19 @@
 """Hand-written Hopper kernels for the serving hot spots, with plain versions.
 
-* flash_attention — prefill attention (tiled online softmax), CUDA
+* flash_attention — prefill attention (tiled online softmax), CUDA:
+  tensor cores (mma.sync) for bf16, CUDA cores for fp32 and head dim 8
 * decode_attention — flash-decode against a KV cache, CUDA
-* ssd_scan — Mamba2 chunked SSD scan with its final state, CUDA
+* ssd_scan — Mamba2 chunked SSD scan with its final state, CUDA: three
+  tensor-core passes for bf16, one CUDA-core kernel for fp32
 * rglru_scan — RG-LRU linear recurrence over time, CUDA
+
+The two kernels with two routes choose one by dtype and shape before the
+launch (``flash_attention.route``, ``ssd_scan.route``); ``launch`` in
+each module can force one, for timing and checking both on a card.
 
 ``ops`` holds the public wrappers (the reference's padding semantics),
 ``ref`` the plain PyTorch versions, ``build`` the nvcc build and the
-launch counters.
+launch counters (kept by route).
 """
 
 from . import build, ops, ref

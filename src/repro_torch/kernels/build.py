@@ -4,10 +4,11 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds, not minutes).  The libraries go into ``build/kernels``
 at the root of the checkout (listed in ``.gitignore``; override with
-``REPRO_TORCH_BUILD_DIR``), named by a hash of the source and the flags,
-so an edited source is rebuilt.  All sources compile in parallel, once per
-process, at first use: :func:`build_kernels` is called when the first
-CUDA engine is created, and every kernel wrapper calls :func:`library`.
+``REPRO_TORCH_BUILD_DIR``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt.  All sources compile in parallel, once per process, at first
+use: :func:`build_kernels` is called when the first CUDA engine is
+created, and every kernel wrapper calls :func:`library`.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a host without ``nvcc``.
@@ -30,9 +31,12 @@ SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the C entries' contract: dtype codes and the head dims they are built for
+# the C entries' contract: dtype codes, the head dims they are built for
+# and the ``route`` argument of the kernels with two routes
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+ROUTE_BY_SHAPE = 0
+ROUTE_CODES = {"cuda_core": 1, "tensor_core": 2}
 MAX_SMEM_BYTES = 232_448          # one block's shared memory on an H100
 
 _lock = threading.Lock()
@@ -44,21 +48,28 @@ build_log: Dict[str, str] = {}
 class KernelStats:
     """Launch counts of one kernel wrapper.
 
-    ``launches`` grows where the wrapper launches its CUDA kernels, and
-    nowhere else, by the number of ``__global__`` kernels that call put
-    on the device; ``cpu_calls`` counts calls that took the plain PyTorch
-    version because the tensors lay on the CPU.  Updates are locked:
-    serving runners call the wrappers from several threads.
+    ``launches_by_route`` grows where the wrapper launches its CUDA
+    kernels, and nowhere else, by the number of ``__global__`` kernels
+    that call put on the device, under the route that took the call
+    (``"cuda_core"`` or ``"tensor_core"``); ``launches`` is their sum.
+    ``cpu_calls`` counts calls that took the plain PyTorch version
+    because the tensors lay on the CPU.  Updates are locked: serving
+    runners call the wrappers from several threads.
     """
 
     def __init__(self) -> None:
-        self.launches = 0
+        self.launches_by_route: Dict[str, int] = {}
         self.cpu_calls = 0
         self._lock = threading.Lock()
 
-    def launched(self, kernels: int = 1) -> None:
+    @property
+    def launches(self) -> int:
+        return sum(self.launches_by_route.values())
+
+    def launched(self, kernels: int = 1, route: str = "cuda_core") -> None:
         with self._lock:
-            self.launches += kernels
+            self.launches_by_route[route] = \
+                self.launches_by_route.get(route, 0) + kernels
 
     def cpu_call(self) -> None:
         with self._lock:
@@ -66,8 +77,15 @@ class KernelStats:
 
     def reset(self) -> None:
         with self._lock:
-            self.launches = 0
+            self.launches_by_route = {}
             self.cpu_calls = 0
+
+
+def aligned(x):
+    """x contiguous with a 16-byte aligned start: the tensor-core kernels
+    copy rows in 16-byte pieces."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def build_dir() -> Path:
@@ -90,7 +108,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.name.encode() + h.read_bytes()
+                       for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
@@ -100,7 +121,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.kernel_error_string.restype = ctypes.c_char_p
     if name == "flash_attention":
         lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                            i, f, i, p]
+                                            i, f, i, i, p]
         lib.flash_attention_fwd.restype = i
     elif name == "decode_attention":
         lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
@@ -109,8 +130,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.decode_attention_smem_bytes.argtypes = [i, i]
         lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
     elif name == "ssd_scan":
-        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                     i, i, p]
+        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                     i, i, i, i, i, i, p]
         lib.ssd_scan_fwd.restype = i
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong

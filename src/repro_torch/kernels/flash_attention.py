@@ -5,9 +5,16 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 ``csrc/flash_attention.cu`` (built for sm_90a by :mod:`.build`); its
 source note says what bounds it on an H100 and how the design answers.
 
+The library has two routes, chosen by dtype and head dim before the
+launch (:func:`route`): bf16 with a head dim of 16..256 runs the
+tensor-core kernel (``mma.sync``), fp32 and head dim 8 the CUDA-core
+kernel.  :func:`flash_attention` always lets the shape decide;
+:func:`launch` can force a route, which only ``chip_smoke.py`` and the
+card tests do, to time and check both kernels on the same inputs.
+
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it computes the plain version, :func:`.ref.flash_attention_ref`.
-``stats`` counts both.
+``stats`` counts both, launches by route.
 """
 
 from __future__ import annotations
@@ -21,6 +28,17 @@ from .ref import flash_attention_ref
 
 stats = build.KernelStats()
 
+TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def route(dtype: str, head_dim: int) -> str:
+    """The route the C entry takes by shape: ``"tensor_core"`` for bf16
+    with a head dim mma can take, else ``"cuda_core"`` (fp32 needs more
+    than TF32's precision; head dim 8 is below mma's depth of 16)."""
+    if dtype == "bfloat16" and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D) → (B, Sq, H, D).
@@ -29,7 +47,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     keys with ``qpos - window < kpos``.
     """
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     if H % Hkv:
         raise ValueError(f"flash_attention: q heads H={H} must be a "
                          f"multiple of kv heads Hkv={Hkv}")
@@ -48,14 +66,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)} (head dim "
                          f"must be one of {build.HEAD_DIMS})")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return launch(q, k, v, causal=causal, window=window)
+
+
+def launch(q, k, v, *, causal: bool, window: int, force: str = ""):
+    """Launch the CUDA kernel on checked CUDA tensors.  ``force`` ``""``
+    lets the shape decide (:func:`route`); ``"cuda_core"`` or
+    ``"tensor_core"`` forces a route, and one that cannot take the shape
+    raises."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dtype = str(q.dtype).removeprefix("torch.")
+    taken = force or route(dtype, D)
+    q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     out = torch.empty_like(q)
     lib = build.library("flash_attention")
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
         H, Hkv, D, int(causal), int(window), 1.0 / math.sqrt(D),
         build.DTYPE_CODES[dtype],
+        build.ROUTE_CODES[force] if force else build.ROUTE_BY_SHAPE,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err)
-    stats.launched()
+    stats.launched(route=taken)
     return out

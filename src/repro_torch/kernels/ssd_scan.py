@@ -23,6 +23,31 @@ from .ref import ssd_scan_ref
 
 stats = build.KernelStats()
 
+TC_MAX_CHUNK = 128
+# device kernels one call enqueues, by route
+KERNELS_PER_CALL = {"tensor_core": 3, "cuda_core": 1}
+
+
+def tc_smem_bytes(P: int, N: int, chunk: int) -> int:
+    """Shared memory of the larger tensor-core block (``ssd_scan.cu``'s
+    ``tc_smem``): chunk-state pass cs/dt/w + B + x·w hi/lo, chunk-scan
+    pass cs/dt/exp(cs) + C + B + x + h_in hi/lo, rows padded by 8."""
+    state = 16 * chunk + 2 * (chunk * (N + 8) + 2 * chunk * (P + 8))
+    scan = 16 * chunk + 2 * (2 * chunk * (N + 8) + chunk * (P + 8)
+                             + 2 * P * (N + 8))
+    return max(state, scan)
+
+
+def route(dtype: str, P: int, N: int, chunk: int) -> str:
+    """The route the C entry takes by shape: ``"tensor_core"`` for bf16
+    with P, N and chunk multiples of 16, chunk <= 128 and the blocks'
+    shared memory within one SM's; else ``"cuda_core"``."""
+    if (dtype == "bfloat16" and P % 16 == 0 and N % 16 == 0
+            and chunk % 16 == 0 and 0 < chunk <= TC_MAX_CHUNK
+            and tc_smem_bytes(P, N, chunk) <= build.MAX_SMEM_BYTES):
+        return "tensor_core"
+    return "cuda_core"
+
 
 def _validate(x, dt, a_log, B_in, C_in, chunk: int) -> None:
     if x.ndim != 4:
@@ -58,8 +83,6 @@ def ssd_scan(x, dt, a_log, B_in, C_in, *, chunk: int = 64):
     if x.device.type == "cpu":
         stats.cpu_call()
         return ssd_scan_ref(x, dt, a_log, B_in, C_in, chunk=chunk)
-    Bb, S, H, P = x.shape
-    G, N = B_in.shape[2], B_in.shape[3]
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev
                                  for t in (dt, a_log, B_in, C_in)):
@@ -72,23 +95,47 @@ def ssd_scan(x, dt, a_log, B_in, C_in, *, chunk: int = 64):
         raise ValueError(f"ssd_scan: x, B_in and C_in must all be float32 "
                          f"or bfloat16, got {x.dtype}, {B_in.dtype}, "
                          f"{C_in.dtype}")
-    if P % 4 or N % 4 or chunk % 4:
-        raise ValueError(f"ssd_scan: head dim P={P}, state N={N} and "
-                         f"chunk={chunk} must be multiples of 4 on CUDA")
+    return launch(x, dt, a_log, B_in, C_in, chunk=chunk)
+
+
+def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
+    """Launch the CUDA kernels on checked CUDA tensors.  ``force`` ``""``
+    lets the shape decide (:func:`route`); ``"cuda_core"`` or
+    ``"tensor_core"`` forces a route, and one that cannot take the shape
+    raises."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    dev = x.device
+    dtype = str(x.dtype).removeprefix("torch.")
+    taken = force or route(dtype, P, N, chunk)
     lib = build.library("ssd_scan")
-    if lib.ssd_scan_smem_bytes(P, N, chunk) > build.MAX_SMEM_BYTES:
-        raise ValueError(f"ssd_scan: P={P}, N={N}, chunk={chunk} does not "
-                         "fit one block's shared memory")
-    x, B_in, C_in = x.contiguous(), B_in.contiguous(), C_in.contiguous()
+    ws = h_in = cs_end = None
+    if taken == "cuda_core":
+        if P % 4 or N % 4 or chunk % 4:
+            raise ValueError(f"ssd_scan: head dim P={P}, state N={N} and "
+                             f"chunk={chunk} must be multiples of 4 on CUDA")
+        if lib.ssd_scan_smem_bytes(P, N, chunk) > build.MAX_SMEM_BYTES:
+            raise ValueError(f"ssd_scan: P={P}, N={N}, chunk={chunk} does "
+                             "not fit one block's shared memory")
+    else:
+        nc = S // chunk
+        ws = torch.empty((Bb, H, nc, P, N), dtype=torch.float32, device=dev)
+        h_in = torch.empty((Bb, H, nc, 2, P, N), dtype=torch.bfloat16,
+                           device=dev)
+        cs_end = torch.empty((Bb, H, nc), dtype=torch.float32, device=dev)
+    x, B_in, C_in = build.aligned(x), build.aligned(B_in), build.aligned(C_in)
     dt = dt.to(torch.float32).contiguous()
     a_log = a_log.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
     err = lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B_in.data_ptr(),
-        C_in.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S, H, G, P, N,
-        chunk, build.DTYPE_CODES[dtype],
+        C_in.data_ptr(), y.data_ptr(), state.data_ptr(),
+        *(t.data_ptr() if t is not None else None
+          for t in (ws, h_in, cs_end)), Bb, S, H, G, P, N, chunk,
+        build.DTYPE_CODES[dtype],
+        build.ROUTE_CODES[force] if force else build.ROUTE_BY_SHAPE,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check("ssd_scan", err)
-    stats.launched()
+    stats.launched(KERNELS_PER_CALL[taken], route=taken)
     return y, state

@@ -338,7 +338,7 @@ def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, dtype):
     x, B_in, C_in, dt = _inputs(6, (B, S, H, P), (B, S, G, N), (B, S, G, N),
                                 (B, S, H))
     x, B_in, C_in = (_t(a, dtype).to(cuda) for a in (x, B_in, C_in))
-    dt = torch.nn.functional.softplus(_t(dt)).to(cuda)
+    dt = torch.nn.functional.softplus(_t(dt, "float32")).to(cuda)
     a_log = torch.log(torch.linspace(1.0, 4.0, H)).to(cuda)
     y, h = ops.ssd_scan(x, dt, a_log, B_in, C_in, chunk=chunk)
     want_y, want_h = ref.ssd_scan_ref(x, dt, a_log, B_in, C_in)
@@ -350,10 +350,87 @@ def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, dtype):
 @pytest.mark.parametrize("B,S,W", RGLRU_GRID)
 def test_cuda_rglru_scan_matches_plain(cuda, B, S, W, dtype):
     a, b = _inputs(7, (B, S, W), (B, S, W))
-    a = torch.sigmoid(_t(a)).to(dtype).to(cuda)
+    a = torch.sigmoid(_t(a, "float32")).to(dtype).to(cuda)
     b = _t(b, dtype).to(cuda)
     h = ops.rglru_scan(a, b)
     assert h.dtype == torch.float32
     want, final = ref.rglru_scan_ref(a, b)
     _close(h.cpu(), want.cpu().numpy(), dtype)
     _close(h[:, -1].cpu(), final.cpu().numpy(), dtype)
+
+
+# --------------------------------------------------------------------- #
+# on a card: both routes of flash_attention and ssd_scan, forced
+# --------------------------------------------------------------------- #
+def _routes(rule):
+    """The routes that take a case: the CUDA cores take every shape the
+    wrapper accepts, the tensor cores those of the rule."""
+    return ("cuda_core", "tensor_core") if rule == "tensor_core" \
+        else ("cuda_core",)
+
+
+FLASH_ROUTE_GRID = [
+    # B, S, H, Hkv, D, window, block
+    (2, 128, 4, 1, 32, 16, 32),      # windows (bf16 tile skipping)
+    (2, 128, 4, 1, 32, 48, 32),
+    (2, 128, 4, 1, 32, 100, 32),
+    (2, 16, 4, 2, 32, 0, 16),        # one partial 64-row tile
+    (2, 32, 4, 2, 32, 0, 16),
+    (2, 48, 4, 2, 32, 0, 16),
+    (1, 128, 4, 4, 64, 0, 32),       # GQA groups 1, 2, 4, 16
+    (1, 128, 4, 2, 64, 0, 32),
+    (2, 128, 4, 1, 64, 0, 32),
+    (1, 128, 16, 1, 64, 0, 32),
+    (1, 512, 4, 1, 256, 0, 512),     # gemma3-1b, B = 1
+    (1, 512, 16, 1, 256, 2048, 512),  # recurrentgemma-9b, B = 1
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,blk", FLASH_ROUTE_GRID)
+def test_cuda_flash_attention_routes_match_plain(cuda, B, S, H, Hkv, D,
+                                                 window, blk, dtype):
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = (_t(x, dtype).to(cuda) for x in _inputs(
+        5, (B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    got = ops.flash_attention(q, k, v, causal=True, window=window,
+                              block_q=blk, block_kv=blk)
+    _close(got.cpu(), want.cpu().float().numpy(), dtype)
+    rule = flash_mod.route(dtype, D)
+    for r in _routes(rule):
+        out = flash_mod.launch(q, k, v, causal=True, window=window, force=r)
+        _close(out.cpu(), want.cpu().float().numpy(), dtype)
+        if r == rule:      # the C entry's choice by shape is the rule's
+            assert torch.equal(out, flash_mod.launch(
+                q, k, v, causal=True, window=window))
+
+
+SSD_ROUTE_GRID = SSD_GRID + [
+    (1, 64, 4, 16, 2, 16, 16),      # grouped, P = 16: tensor cores
+    (2, 64, 4, 16, 1, 32, 64),      # one chunk (S = chunk)
+    (1, 512, 24, 64, 1, 128, 64),   # mamba2-130m serving shape, B = 1
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_ROUTE_GRID)
+def test_cuda_ssd_scan_routes_match_plain(cuda, B, S, H, P, G, N, chunk,
+                                          dtype):
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, B_in, C_in, dt = _inputs(8, (B, S, H, P), (B, S, G, N), (B, S, G, N),
+                                (B, S, H))
+    x, B_in, C_in = (_t(a, dtype).to(cuda) for a in (x, B_in, C_in))
+    dt = torch.nn.functional.softplus(_t(dt, "float32")).to(cuda)
+    a_log = torch.log(torch.linspace(1.0, 4.0, H)).to(cuda)
+    args = (x, dt, a_log, B_in, C_in)
+    want_y, want_h = ref.ssd_scan_ref(*args)
+    rule = ssd_mod.route(dtype, P, N, chunk)
+    for r in _routes(rule):
+        y, h = ssd_mod.launch(*args, chunk=chunk, force=r)
+        _close(y.cpu(), want_y.cpu().float().numpy(), dtype)
+        _close(h.cpu(), want_h.cpu().numpy(), dtype)
+        if r == rule:
+            y0, h0 = ssd_mod.launch(*args, chunk=chunk)
+            assert torch.equal(y, y0) and torch.equal(h, h0)

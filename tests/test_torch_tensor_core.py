@@ -1,0 +1,226 @@
+"""The tensor-core routes of the port's flash_attention and ssd_scan.
+
+* The route rules (pure Python, mirrored by the C entries): bf16 at the
+  serving shapes takes the tensor cores; fp32, head dim 8 and P = 8 take
+  the CUDA cores.  CPU tensors take the plain version and launch nothing.
+* Launch counts are kept by route, and an edited shared header renames
+  the built library.
+* A test-local PyTorch mirror of the SSD tensor-core route's three passes
+  (chunk states, the state pass, the chunk scan) with the kernels'
+  rounding points: x·w, the masked score matrix and the state entering a
+  chunk each carried as a bf16 pair hi + lo.  It is held against
+  ``ref.ssd_scan_ref`` and the JAX package's ``ssd_scan`` (the Pallas
+  kernel in interpret mode, as ``tests/test_kernels.py`` runs it) at the
+  grid's small shapes and at mamba2-130m's widths, with bf16's tolerance
+  (atol = rtol = 2e-2) on y and the final state.
+
+The kernels themselves run only on a card (``tests/test_torch_kernels.py``,
+``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import KERNEL_STATS, build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from test_torch_kernels import _close  # noqa: E402
+from test_torch_ssm import _as, _ssd_inputs  # noqa: E402
+
+jax.config.update("jax_enable_x64", False)
+
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # tests/test_kernels.py's bf16
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """Tiny CPU ops run far slower under an oversubscribed intra-op pool
+    (several test workers share the host); the tests need one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# --------------------------------------------------------------------- #
+# route rules
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype,D,want", [
+    ("bfloat16", 256, "tensor_core"),    # gemma3-1b, recurrentgemma-9b
+    ("bfloat16", 16, "tensor_core"),
+    ("bfloat16", 64, "tensor_core"),
+    ("bfloat16", 8, "cuda_core"),        # below mma's depth of 16
+    ("float32", 256, "cuda_core"),       # TF32 misses fp32's 2e-5
+    ("float32", 8, "cuda_core"),
+])
+def test_flash_route_rule(dtype, D, want):
+    assert flash_mod.route(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype,P,N,chunk,want", [
+    ("bfloat16", 64, 128, 64, "tensor_core"),   # mamba2-130m
+    ("bfloat16", 16, 16, 16, "tensor_core"),    # the grouped grid case
+    ("bfloat16", 16, 32, 48, "tensor_core"),
+    ("bfloat16", 8, 16, 16, "cuda_core"),       # P = 8
+    ("bfloat16", 64, 12, 64, "cuda_core"),      # N not a multiple of 16
+    ("bfloat16", 64, 128, 256, "cuda_core"),    # chunk above 128
+    ("bfloat16", 256, 512, 128, "cuda_core"),   # over one SM's memory
+    ("float32", 64, 128, 64, "cuda_core"),
+])
+def test_ssd_route_rule(dtype, P, N, chunk, want):
+    assert ssd_mod.route(dtype, P, N, chunk) == want
+
+
+def test_ssd_tensor_core_shared_memory_at_the_serving_shape():
+    # chunk scan: 16 Q + 2 (2 Q (N+8) + Q (P+8) + 2 P (N+8)) bytes
+    assert ssd_mod.tc_smem_bytes(64, 128, 64) == \
+        16 * 64 + 2 * (2 * 64 * 136 + 64 * 72 + 2 * 64 * 136)
+    assert ssd_mod.tc_smem_bytes(64, 128, 64) <= build.MAX_SMEM_BYTES
+
+
+def test_bf16_cpu_tensors_take_the_plain_route_and_launch_nothing():
+    """At shapes the tensor cores take, CPU tensors still compute the
+    plain versions and count no launch on either route."""
+    rng = np.random.default_rng(0)
+    before = {n: (dict(s.launches_by_route), s.cpu_calls)
+              for n, s in KERNEL_STATS.items()}
+    q = torch.from_numpy(rng.standard_normal((1, 32, 4, 16),
+                                             dtype=np.float32)).bfloat16()
+    k = q[:, :, :1].contiguous()
+    out = ops.flash_attention(q, k, k, block_q=16, block_kv=16)
+    _close(out, ref.flash_attention_ref(q, k, k).float().numpy(),
+           "bfloat16")
+    arrays = _ssd_inputs(1, 1, 32, 2, 16, 1, 16)
+    y, h = ops.ssd_scan(*_as("bfloat16", *arrays, lib="torch"), chunk=16)
+    want_y, want_h = ref.ssd_scan_ref(*_as("bfloat16", *arrays, lib="torch"))
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    for name in ("flash_attention", "ssd_scan"):
+        stats = KERNEL_STATS[name]
+        assert stats.launches_by_route == before[name][0]
+        assert stats.cpu_calls == before[name][1] + 1
+
+
+def test_launch_counts_are_kept_by_route():
+    stats = build.KernelStats()
+    stats.launched(3, route="tensor_core")
+    stats.launched()
+    stats.launched(2, route="tensor_core")
+    assert stats.launches_by_route == {"tensor_core": 5, "cuda_core": 1}
+    assert stats.launches == 6
+    stats.cpu_call()
+    stats.reset()
+    assert (stats.launches, stats.launches_by_route, stats.cpu_calls) == \
+        (0, {}, 0)
+
+
+def test_an_edited_header_renames_the_library(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._lib_path("k")
+    assert build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build._lib_path("k") != first
+
+
+def test_the_real_header_enters_the_hash():
+    assert (build.CSRC / "mma.cuh").is_file()
+    assert build._lib_path("flash_attention").name.startswith(
+        "libflash_attention-")
+
+
+# --------------------------------------------------------------------- #
+# the SSD tensor-core route's algebra, with its rounding points
+# --------------------------------------------------------------------- #
+def _pair(v):
+    """v as the kernels carry it: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.bfloat16().float()
+    return hi + (v - hi).bfloat16().float()
+
+
+def _single(v):
+    """v rounded once to bf16 (what the kernels do not do)."""
+    return v.bfloat16().float()
+
+
+def _ssd_three_pass(x, dt, a_log, B_in, C_in, *, chunk, carry=_pair):
+    """y (x's dtype) and the final state (fp32) by ``ssd_scan.cu``'s
+    tensor-core passes, in PyTorch; ``carry`` rounds the three operands
+    the kernels compute."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    nc, Q = S // chunk, chunk
+    A = -torch.exp(a_log.float())
+    xf = x.float().reshape(Bb, nc, Q, H, P)
+    dtc = dt.float().reshape(Bb, nc, Q, H)
+    grp = torch.arange(H) // (H // G)            # B/C read per group
+    Bc = B_in.float()[:, :, grp].reshape(Bb, nc, Q, H, N)
+    Cc = C_in.float()[:, :, grp].reshape(Bb, nc, Q, H, N)
+    # fp64 cumsum of the fp32 dA; the decays' differences in fp64
+    cs = torch.cumsum((dtc * A).double(), 2)                  # (B,nc,Q,H)
+    cs_end = cs[:, :, -1]
+    # pass 1: dS_c = (x o w)^T B, w_j = dt_j exp(cs_end - cs_j)
+    w = torch.exp((cs_end[:, :, None] - cs).float()) * dtc
+    dS = torch.einsum("bcqhp,bcqhn->bchpn", carry(xf * w[..., None]), Bc)
+    # pass 2: h_c = exp(cs_end,c) h_{c-1} + dS_c; h_in is the entering state
+    h = torch.zeros(Bb, H, P, N)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(cs_end[:, c].float())[..., None, None] * h + dS[:, c]
+    h_in = carry(torch.stack(h_in, 1))                       # (B,nc,H,P,N)
+    # pass 3: y = (C B^T o L o dt) x + exp(cs) o (C h_in^T)
+    scores = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
+    csh = cs.permute(0, 1, 3, 2)                              # (B,nc,H,Q)
+    L = torch.exp((csh[..., :, None] - csh[..., None, :]).float())
+    lower = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    M = torch.where(lower, scores * L * dtc.permute(0, 1, 3, 2)[..., None, :],
+                    0.0)
+    y = torch.einsum("bchij,bcjhp->bcihp", carry(M), xf)
+    y = y + torch.einsum("bcihn,bchpn->bcihp", Cc, h_in) \
+        * torch.exp(cs.float())[..., None]
+    return y.reshape(Bb, S, H, P).to(x.dtype), h
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 64, 4, 16, 2, 16, 16),      # grouped B/C, P = 16
+    (2, 64, 4, 16, 1, 32, 64),      # one chunk (S = chunk)
+    (1, 256, 24, 64, 1, 128, 64),   # mamba2-130m's widths
+])
+def test_ssd_three_pass_algebra_matches_references(B, S, H, P, G, N, chunk):
+    arrays = _ssd_inputs(B * 7 + S + P, B, S, H, P, G, N)
+    tin = _as("bfloat16", *arrays, lib="torch")
+    y, h = _ssd_three_pass(*tin, chunk=chunk)
+    assert y.dtype == torch.bfloat16 and h.shape == (B, H, P, N)
+    want_y, want_h = ref.ssd_scan_ref(*tin)
+    # bf16's tolerance, on y and on the final state
+    np.testing.assert_allclose(y.float().numpy(), want_y.float().numpy(),
+                               **BF16_TOL)
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), **BF16_TOL)
+    jy = jops.ssd_scan(*_as("bfloat16", *arrays, lib="jax"), chunk=chunk)
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jy, np.float32), **BF16_TOL)
+
+
+def test_one_bf16_rounding_would_miss_the_tolerance():
+    """Why the kernels carry x·w, the masked scores and h_in as bf16
+    pairs: rounded once to bf16, y leaves bf16's tolerance at
+    mamba2-130m's widths, while the pairs stay inside it."""
+    B, S, H, P, G, N, chunk = 1, 256, 24, 64, 1, 128, 64
+    tin = _as("bfloat16", *_ssd_inputs(B * 7 + S + P, B, S, H, P, G, N),
+              lib="torch")
+    want_y, _ = ref.ssd_scan_ref(*tin)
+    limit = BF16_TOL["atol"] + BF16_TOL["rtol"] * want_y.float().abs()
+
+    def worst(carry):
+        y, _ = _ssd_three_pass(*tin, chunk=chunk, carry=carry)
+        return float(((y.float() - want_y.float()).abs() / limit).max())
+
+    assert worst(_pair) <= 1.0 < worst(_single)
