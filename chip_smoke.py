@@ -19,13 +19,18 @@ non-zero:
 2. **kernels** — each kernel against its plain PyTorch version on the
    card, fp32 and bf16: the shape grids of ``tests/test_kernels.py``,
    head dim 8, GQA groups 1-16, windows, partial tiles, a single chunk,
-   and the serving shapes of the three paths at B = 1 and 4 (decode 1
-   and 8).  ``flash_attention`` and ``ssd_scan`` have two routes (CUDA
-   cores; tensor cores for bf16): every case runs through the public
-   wrapper and through each route that takes it, forced, and the
-   wrapper's choice by shape must match the Python route rule bit for
-   bit.  Tolerances are ``tests/test_kernels.py``'s (atol = rtol = 2e-5
-   fp32, 2e-2 bf16); the SSD scan's final state is compared too.  Times
+   and the serving shapes of the three paths at B = 1 and 4 (decode
+   also at B = 8 and at the serve phase's cache lengths; decode lengths
+   of 1, one split, one split + 1 and S; RG-LRU partial chunks and
+   column tiles).  ``flash_attention``, ``decode_attention`` and
+   ``ssd_scan`` have two routes each (CUDA cores, tensor cores for
+   bf16): every case runs through the public wrapper and through each
+   route that takes it, forced, and the wrapper's choice by shape must
+   match the Python route rule bit for bit; ``rglru_scan`` has one
+   kernel, the chunked scan.  Tolerances are ``tests/test_kernels.py``'s (atol = rtol =
+   2e-5 fp32, 2e-2 bf16); the scans' final states are compared too, and
+   the fp32 SSD kernel is held against the sequential recurrence in fp64
+   (in fp32 it strays past 2e-5 from that at B = 4).  Times
    at the serving shapes: the wrapper and each route, its plain version,
    one PyTorch library call computing the same function where there is
    one (``scaled_dot_product_attention``, a yardstick the port never
@@ -50,10 +55,11 @@ non-zero:
    ``LmEngine`` behind ``RealPlane``, per-phase profiles, then
    ``run_lm_policy`` for ``static`` and ``packrat`` over a seeded
    steady-poisson trace.  Every prompt must complete, every kernel of the
-   path must launch, the bf16 ``flash_attention`` and ``ssd_scan`` calls
-   must all take the tensor-core route, and no wrapper may take its CPU
-   route.  The launch counts (by route) are reset just before each path
-   and read just after it.
+   path must launch, each only on the route ``PATHS`` requires for it
+   (the tensor cores for the attention kernels and ``ssd_scan``, the
+   chunked RG-LRU scan), no other kernel may launch, and no wrapper may
+   take its CPU route.  The launch counts (by route) are reset just
+   before each path and read just after it.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
@@ -77,16 +83,15 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 SERVE_SECONDS = 8.0
 # trace phase: one prefill of TRACE_PROMPT tokens, then TRACE_DECODE steps
 TRACE_PROMPT, TRACE_DECODE, TRACE_MAX_LEN, TRACE_TOP = 512, 4, 1024, 8
-# path -> the kernels its serve block must launch
-PATHS = {"gemma3-1b": ("flash_attention", "decode_attention"),
-         "mamba2-130m": ("ssd_scan",),
-         "recurrentgemma-9b": ("rglru_scan", "flash_attention",
-                               "decode_attention")}
-# path -> the kernels whose bf16 serving calls must all take the
-# tensor-core route
-TENSOR_CORE_PATHS = {"gemma3-1b": ("flash_attention",),
-                     "mamba2-130m": ("ssd_scan",),
-                     "recurrentgemma-9b": ("flash_attention",)}
+# path -> {kernel its serve block must launch: the one route every bf16
+# serving call of that kernel must take}; any other launch fails the path
+PATHS = {"gemma3-1b": {"flash_attention": "tensor_core",
+                       "decode_attention": "tensor_core"},
+         "mamba2-130m": {"ssd_scan": "tensor_core"},
+         "recurrentgemma-9b": {"rglru_scan": "chunked",
+                               "flash_attention": "tensor_core",
+                               "decode_attention": "tensor_core"}}
+ROUTES = ("cuda_core", "tensor_core", "chunked")
 # path -> (prompt tokens, cache slots) of the model check
 MODEL_CHECK = {"gemma3-1b": (1024, 2048), "mamba2-130m": (1000, 2048),
                "recurrentgemma-9b": (2100, 4096)}
@@ -132,7 +137,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_s = build.build_kernels()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "Function properties for" in ln]
              for name, log in build.build_log.items()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
@@ -158,16 +164,15 @@ def main(argv=None) -> int:
         serve_rep["launches_by_route"] = counts
         serve_rep["cpu_calls"] = cpu_calls
         emit({"phase": "serve", **serve_rep})
-        for name in needed:
-            if sum(counts[name].values()) <= 0:
-                raise AssertionError(f"{path}: {name} never launched on "
-                                     "the main path")
-        for name in TENSOR_CORE_PATHS[path]:
-            if counts[name].get("tensor_core", 0) <= 0 \
-                    or counts[name].get("cuda_core", 0):
-                raise AssertionError(f"{path}: bf16 {name} calls must all "
-                                     "take the tensor-core route, got "
-                                     f"{counts[name]}")
+        for name, by_route in counts.items():
+            want = needed.get(name)
+            if want is None and by_route:
+                raise AssertionError(f"{path}: {name} launched, but the "
+                                     f"path has no call of it: {by_route}")
+            if want is not None and (by_route.get(want, 0) <= 0
+                                     or set(by_route) != {want}):
+                raise AssertionError(f"{path}: every {name} call must take "
+                                     f"the {want} route, got {by_route}")
         for name, n in cpu_calls.items():
             if n != 0:
                 raise AssertionError(f"{path}: {name} took its CPU route "
@@ -320,6 +325,7 @@ def _free(torch) -> None:
 # --------------------------------------------------------------------- #
 def phase_kernels(torch):
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as ssd_mod
@@ -330,6 +336,7 @@ def phase_kernels(torch):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     cases = []
+    oracle = []        # the fp32 plain versions' own distance from fp64
 
     def check(kind, shape, dtype_name, got, want, **extra):
         err, ok = _compare(torch, got, want, dtype_name)
@@ -435,29 +442,57 @@ def phase_kernels(torch):
                 "library_host_ms": library["host_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by})
 
+    # decode: tests/test_kernels.py grid (random lengths), lengths of 1,
+    # one split, one split + 1 and S at GQA groups 1, 2, 4, 8 and 16, and
+    # the serving shapes: gemma3-1b's global cache (S = 1024, 520 valid
+    # rows, as the serve phase's decode steps leave it) and its ring
+    # cache (S = 512, full) at B = 1, 4; recurrentgemma-9b (16 heads on
+    # 1) at S = 1024, 520 valid, B = 1, 4; B = 8 with random lengths
+    split = decode_mod.SPLIT_ROWS
     decode = []
     for dt in TOL:
         for B, S, H, Hkv, D in ((2, 128, 4, 2, 32), (1, 256, 8, 8, 64),
                                 (3, 96, 4, 1, 16), (2, 64, 2, 1, 8)):
-            decode.append((dt, B, S, H, Hkv, D, 32))
+            decode.append((dt, B, S, H, Hkv, D, 32, None))
+        edges = (1, split, split + 1)
+        for H in (1, 2, 4, 8, 16):
+            decode.append((dt, 4, 256, H, 1, 64, 256, edges + (256,)))
+        decode.append((dt, 4, 1024, 16, 1, 256, 1024, edges + (1024,)))
+        decode.append((dt, 4, 128, 8, 2, 16, 128, edges + (128,)))
         for B in (1, 8):
             for S in (512, 1024):
-                decode.append((dt, B, S, 4, 1, 256, 1024))
-        decode.append((dt, 4, 1024, 16, 1, 256, 1024))
-    for dt, B, S, H, Hkv, D, blk in decode:
+                decode.append((dt, B, S, 4, 1, 256, 1024, None))
+        decode.append((dt, 4, 1024, 16, 1, 256, 1024, None))
+        for B in (1, 4):
+            decode.append((dt, B, 1024, 4, 1, 256, 1024, (520,) * B))
+            decode.append((dt, B, 512, 4, 1, 256, 512, (512,) * B))
+            decode.append((dt, B, 1024, 16, 1, 256, 1024, (520,) * B))
+    for dt, B, S, H, Hkv, D, blk, lens in decode:
         dtype = getattr(torch, dt)
         q = randn((B, 1, H, D), dtype)
         kc = randn((B, S, Hkv, D), dtype)
         vc = randn((B, S, Hkv, D), dtype)
-        lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
-                                dtype=torch.int32)
+        if lens is None:
+            lengths = torch.randint(1, S + 1, (B,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+        else:
+            lengths = torch.tensor(lens, device=dev, dtype=torch.int32)
         got = ops.decode_attention(q, kc, vc, lengths, block_kv=blk)
         want = ref.decode_attention_ref(q, kc, vc, lengths)
         torch.cuda.synchronize()
         shape = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
                  "lengths": lengths.tolist()}
-        err = check("decode_attention", shape, dt, got, want,
-                    route="cuda_core")
+        rule = decode_mod.route(dt, D, H // Hkv)
+        err = check("decode_attention", shape, dt, got, want, route=rule,
+                    via="ops.decode_attention")
+        forced, errs = {}, {}
+        for r in routes_for(rule):
+            forced[r] = decode_mod.launch(q, kc, vc, lengths, force=r)
+            torch.cuda.synchronize()
+            errs[r] = check("decode_attention", shape, dt, forced[r], want,
+                            route=r)
+        same_route("decode_attention", shape, dt, rule,
+                   [decode_mod.launch(q, kc, vc, lengths)], [forced[rule]])
         if D == 256:
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(kc, H // Hkv, 2).transpose(1, 2)
@@ -470,18 +505,22 @@ def phase_kernels(torch):
             nbytes = elem * (2 * B * H * D + 2 * Hkv * D * total) + 4 * B
             bound_ms, bound_by = _bound(nbytes, flops, dt)
             wrapper = time_ms(torch, lambda: ops.decode_attention(
-                q, kc, vc, lengths, block_kv=1024), iters=50)
+                q, kc, vc, lengths, block_kv=blk), iters=50)
             library = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask), iters=50)
             timings["decode_attention"].append({
-                "shape": shape, "dtype": dt, "route": "cuda_core",
+                "shape": shape, "dtype": dt, "route": rule,
                 "max_abs_err": err, "ms": wrapper["ms"],
                 "host_ms": wrapper["host_ms"], "covered": wrapper["covered"],
+                "routes": {r: {"max_abs_err": errs[r], **time_ms(
+                    torch, lambda r=r: decode_mod.launch(
+                        q, kc, vc, lengths, force=r), iters=50),
+                    "device_kernels_ms": kernel_breakdown(
+                        torch, lambda r=r: decode_mod.launch(
+                            q, kc, vc, lengths, force=r))}
+                    for r in routes_for(rule)},
                 "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(
                     q, kc, vc, lengths), iters=50)["ms"],
-                "device_kernels_ms": kernel_breakdown(
-                    torch, lambda: ops.decode_attention(
-                        q, kc, vc, lengths, block_kv=1024)),
                 "library_ms": library["ms"],
                 "library_host_ms": library["host_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by})
@@ -489,7 +528,7 @@ def phase_kernels(torch):
     # SSD: tests/test_kernels.py grid, a grouped case with P = 16 (the
     # tensor cores take it), one chunk (S = chunk), and mamba2-130m's
     # serving shape at B = 1, 4; the plain version is the sequential
-    # recurrence, y and the final state
+    # recurrence, y and the final state (evaluated in fp64 for fp32)
     for dt in TOL:
         for B, S, H, P, G, N, Q in ((1, 64, 2, 8, 1, 16, 16),
                                     (2, 128, 4, 16, 1, 32, 32),
@@ -505,11 +544,25 @@ def phase_kernels(torch):
             B_in = randn((B, S, G, N), dtype)
             C_in = randn((B, S, G, N), dtype)
             args = (x, dts, a_log, B_in, C_in)
-            want_y, want_h = ref.ssd_scan_ref(*args)
-            y, h = ops.ssd_scan(*args, chunk=Q)
-            torch.cuda.synchronize()
             shape = {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
                      "chunk": Q}
+            want_y, want_h = ref.ssd_scan_ref(*args)
+            if dt == "float32":
+                # fp32 is held against the recurrence in fp64: at B = 4,
+                # S = 512 the recurrence in fp32 strays up to ~1e-4 from
+                # it (its distance is reported beside), past what 2e-5
+                # allows
+                plain_y, plain_h = want_y, want_h
+                want_y, want_h = ref.ssd_scan_ref(
+                    *(t.double() for t in args))
+                oracle.append({"kernel": "ssd_scan", "shape": shape,
+                               "plain_fp32_vs_fp64": {
+                                   "y": _compare(torch, plain_y, want_y,
+                                                 dt),
+                                   "state": _compare(torch, plain_h,
+                                                     want_h, dt)}})
+            y, h = ops.ssd_scan(*args, chunk=Q)
+            torch.cuda.synchronize()
             rule = ssd_mod.route(dt, P, N, Q)
             err = check("ssd_scan", shape, dt, y, want_y, output="y",
                         route=rule, via="ops.ssd_scan")
@@ -552,21 +605,29 @@ def phase_kernels(torch):
                     "library_ms": None,
                     "bound_ms": bound_ms, "bound_by": bound_by})
 
-    # RG-LRU: tests/test_kernels.py grid and recurrentgemma-9b's serving
-    # shape at B = 1, 4; a in (0, 1) as the gates make it
+    # RG-LRU: tests/test_kernels.py grid, S of 1 and 7 (inside one
+    # chunk), a partial last chunk (S = 97) and group (S = 520), partial
+    # 32-column tiles (W = 48, 100), and recurrentgemma-9b's serving shape
+    # at B = 1, 4.  a in (0, 1), mostly 0.8-1 as Griffin's gates make it
+    # (a^c in [0.9, 0.999] at init), so carries across chunks matter.  The
+    # main path's dtype is fp32
     for dt in TOL:
         for B, S, W in ((1, 64, 16), (2, 128, 48), (1, 96, 32),
+                        (1, 1, 48), (2, 7, 100), (2, 97, 48), (1, 97, 100),
+                        (2, 520, 100), (1, 520, 48),
                         (1, 512, 4096), (4, 512, 4096)):
             dtype = getattr(torch, dt)
-            a = torch.sigmoid(randn((B, S, W), torch.float32)).to(dtype)
+            a = torch.sigmoid(randn((B, S, W), torch.float32) + 3.0).to(
+                dtype)
             b = randn((B, S, W), dtype)
             h = ops.rglru_scan(a, b)
             want, want_final = ref.rglru_scan_ref(a, b)
             torch.cuda.synchronize()
             shape = {"B": B, "S": S, "W": W}
-            err = check("rglru_scan", shape, dt, h, want, route="cuda_core")
+            err = check("rglru_scan", shape, dt, h, want, route="chunked",
+                        via="ops.rglru_scan")
             check("rglru_scan", shape, dt, h[:, -1], want_final,
-                  output="final state", route="cuda_core")
+                  output="final state", route="chunked", via="ops.rglru_scan")
             if W == 4096:
                 elem = a.element_size()
                 nbytes = 2 * elem * B * S * W + 4 * B * S * W
@@ -574,7 +635,7 @@ def phase_kernels(torch):
                 wrapper = time_ms(torch, lambda: ops.rglru_scan(a, b),
                                   iters=50)
                 timings["rglru_scan"].append({
-                    "shape": shape, "dtype": dt, "route": "cuda_core",
+                    "shape": shape, "dtype": dt, "route": "chunked",
                     "max_abs_err": err, "ms": wrapper["ms"],
                     "host_ms": wrapper["host_ms"],
                     "covered": wrapper["covered"],
@@ -584,10 +645,11 @@ def phase_kernels(torch):
                     "bound_ms": bound_ms, "bound_by": bound_by})
 
     failed = [c for c in cases if not c["ok"]]
-    # headline: the serving phase's largest cells in its working dtype —
-    # a 512-token bf16 prefill at b=4 and a bf16 decode step at b=8
-    # against gemma3-1b's 1024-slot global cache; the scans at b=4 over a
-    # 512-token prompt
+    # headline: the serving phase's largest cells in the dtype its calls
+    # pass — a 512-token bf16 prefill at b=4, a bf16 decode step at b=4
+    # against gemma3-1b's 1024-slot global cache with 520 valid rows, the
+    # bf16 SSD scan and the fp32 RG-LRU scan (the gates' output) at b=4
+    # over a 512-token prompt
     headline = {
         "flash_attention": next(
             t for t in timings["flash_attention"]
@@ -596,22 +658,23 @@ def phase_kernels(torch):
             and t["shape"]["window"] == 0),
         "decode_attention": next(
             t for t in timings["decode_attention"]
-            if t["dtype"] == "bfloat16" and t["shape"]["B"] == 8
-            and t["shape"]["S"] == 1024),
+            if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
+            and t["shape"]["S"] == 1024 and t["shape"]["H"] == 4
+            and t["shape"]["lengths"] == [520] * 4),
         "ssd_scan": next(t for t in timings["ssd_scan"]
                          if t["dtype"] == "bfloat16"
                          and t["shape"]["B"] == 4),
         "rglru_scan": next(t for t in timings["rglru_scan"]
-                           if t["dtype"] == "bfloat16"
+                           if t["dtype"] == "float32"
                            and t["shape"]["B"] == 4),
     }
-    rep = {"cases": len(cases), "failed": failed,
+    rep = {"cases": len(cases), "failed": failed, "oracle": oracle,
            "max_abs_err": {f"{k}/{dt}/{r}": max(
                c["max_abs_err"] for c in cases if c["kernel"] == k
                and c["dtype"] == dt and c.get("route") == r
                and "max_abs_err" in c)
                for k in timings for dt in TOL
-               for r in ("cuda_core", "tensor_core")
+               for r in ROUTES
                if any(c["kernel"] == k and c["dtype"] == dt
                       and c.get("route") == r for c in cases)},
            "tolerance": {dt: {"atol": a, "rtol": r}

@@ -2,14 +2,18 @@
 
 * flash_attention — prefill attention (tiled online softmax), CUDA:
   tensor cores (mma.sync) for bf16, CUDA cores for fp32 and head dim 8
-* decode_attention — flash-decode against a KV cache, CUDA
+* decode_attention — flash-decode against a KV cache in 64-row splits
+  and a combine, CUDA: tensor cores (mma.sync) for bf16 with GQA groups
+  up to 16, CUDA cores for fp32, head dim 8 and larger groups
 * ssd_scan — Mamba2 chunked SSD scan with its final state, CUDA: three
   tensor-core passes for bf16, one CUDA-core kernel for fp32
-* rglru_scan — RG-LRU linear recurrence over time, CUDA
+* rglru_scan — RG-LRU linear recurrence over time, CUDA: one chunked
+  scan for every shape
 
-The two kernels with two routes choose one by dtype and shape before the
-launch (``flash_attention.route``, ``ssd_scan.route``); ``launch`` in
-each module can force one, for timing and checking both on a card.
+flash_attention, decode_attention and ssd_scan each have two routes and
+choose one by dtype and shape before the launch (``<module>.route``);
+``launch`` in each of those modules can force one, for timing and
+checking both on a card.
 
 ``ops`` holds the public wrappers (the reference's padding semantics),
 ``ref`` the plain PyTorch versions, ``build`` the nvcc build and the

@@ -32,9 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the C entries' contract: dtype codes, the head dims they are built for
-# and the ``route`` argument of the kernels with two routes
+# and the ``route`` argument of the kernels with two routes (flash, decode
+# and SSD; 0 lets the shape decide)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = HEAD_DIMS[1:]   # mma.sync needs a depth of 16
 ROUTE_BY_SHAPE = 0
 ROUTE_CODES = {"cuda_core": 1, "tensor_core": 2}
 MAX_SMEM_BYTES = 232_448          # one block's shared memory on an H100
@@ -51,7 +53,8 @@ class KernelStats:
     ``launches_by_route`` grows where the wrapper launches its CUDA
     kernels, and nowhere else, by the number of ``__global__`` kernels
     that call put on the device, under the route that took the call
-    (``"cuda_core"`` or ``"tensor_core"``); ``launches`` is their sum.
+    (``"cuda_core"`` or ``"tensor_core"``; ``"chunked"`` for the RG-LRU
+    scan, which has one); ``launches`` is their sum.
     ``cpu_calls`` counts calls that took the plain PyTorch version
     because the tensors lay on the CPU.  Updates are locked: serving
     runners call the wrappers from several threads.
@@ -79,6 +82,18 @@ class KernelStats:
         with self._lock:
             self.launches_by_route = {}
             self.cpu_calls = 0
+
+
+def route_code(name: str, force: str) -> int:
+    """The C entry's ``route`` argument for a launch of kernel ``name``:
+    :data:`ROUTE_BY_SHAPE` when nothing is forced, else the forced route's
+    code; a name that is not one of :data:`ROUTE_CODES` raises."""
+    if not force:
+        return ROUTE_BY_SHAPE
+    if force not in ROUTE_CODES:
+        raise ValueError(f"{name}: no route {force!r}; its routes are "
+                         f"{sorted(ROUTE_CODES)}")
+    return ROUTE_CODES[force]
 
 
 def aligned(x):
@@ -125,9 +140,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_attention_fwd.restype = i
     elif name == "decode_attention":
         lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                             i, f, i, p]
+                                             i, f, i, i, p]
         lib.decode_attention_fwd.restype = i
-        lib.decode_attention_smem_bytes.argtypes = [i, i]
+        lib.decode_attention_smem_bytes.argtypes = [i, i, i]
         lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
     elif name == "ssd_scan":
         lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,

@@ -5,51 +5,87 @@
 // caches (B, S, Hkv, D) with cache positions >= lengths[b] masked, online
 // softmax in fp32, fp32 or bf16 storage.
 //
-// Design.  The TPU kernel walks the cache length as a sequential grid
-// axis, one batch row per core.  On an H100 that would leave all but B
-// of 132 SMs idle, so the cache length is split (flash-decoding): one
-// block per (split, KV head, batch row) walks its chunk of the cache in
-// 32-row tiles and keeps m / l / acc for the `rep = H / Hkv` query heads
-// of its GQA group together, so each K/V tile is read from device memory
-// once for the whole group, as the TPU kernel's (Hkv, rep, D) reshape
-// does.  Chunks past lengths[b] read nothing.  Each split writes its
-// partial (m, l, acc) to a workspace, and a second kernel combines the
-// splits with the same algebra the online softmax uses within one
-// (weights exp(m_s - max m)).  With one split the first kernel writes
-// the output itself.  Inside a tile one warp per query head reduces the
-// tile's 32 scores with shuffles (lane = KV row).  The mask constant is
-// the TPU kernel's finite -0.7 * FLT_MAX and l is clamped at 1e-30, as
-// there; an empty split's m stays at that constant, so its weight in the
-// combine is exp(-huge) = 0.
+// Design, both routes.  The TPU kernel walks the cache length as a
+// sequential grid axis, one batch row per core.  On an H100 that would
+// leave all but B of 132 SMs idle, so the cache length is split
+// (flash-decoding): one block per (split, KV head, batch row), each split
+// kSplit = 64 cache rows long, so a block's chain is one tile.  A block
+// keeps the `rep = H / Hkv` query heads of its GQA group together, so each
+// K/V row is read from device memory once for the whole group, as the TPU
+// kernel's (Hkv, rep, D) reshape does.  A split that starts at or past
+// lengths[b] exits before loading anything.  Each live split writes its
+// partial (acc, m, l) to a per-call workspace and `combine_kernel` merges
+// them with the algebra the online softmax uses within one (weights
+// exp(m_s - max m)); with one split the split kernel writes the output
+// itself.  The mask constant is the TPU kernel's finite -0.7 * FLT_MAX
+// and l is clamped at 1e-30, as there, so a row with no valid position
+// gets 0, as from the TPU kernel.
 //
 // What bounds it on an H100.  A decode step reads each valid cache row
-// once: 2 tensors * Hkv * D * bytes per row, e.g. 3.5 MB for B = 8 rows of
-// mixed length (sum 3,463) at D = 256 in bf16 -- about 1 us at 3.35 TB/s,
-// less than a kernel launch.  The bound that matters in serving is the
-// launch and the host that enqueues it; the splits keep the device part
-// short by spreading the rows over the SMs.
+// once: 2 tensors * Hkv * D * bytes per row, e.g. 2.6 MB for B = 8 rows
+// of mixed length (sum 5,149) at D = 256 in bf16 -- under 1 us at 3.35
+// TB/s, less than a kernel launch.  So the device time is latency: one
+// block's chain of dependent steps, plus the combine's.
+//
+// Two routes, chosen by dtype, head dim and group before the launch
+// (never after a failure): `decode_attention_fwd`'s `route` argument is
+// 0 (by shape), 1 (CUDA cores) or 2 (tensor cores), and it returns -1
+// where a forced route cannot take the shape.
+//
+// Tensor-core route (bf16, D = 16..256, rep <= 16): `decode_tc_kernel`.
+// The CUDA-core kernel takes ~23 us at every batch and length: scalar
+// 2-byte loads converted to fp32 in shared memory, scores computed by
+// rep * 32 of 256 threads as D-long dependent FMA chains, and load,
+// scores, softmax and P V in series.  Here the block issues 16-byte cp.async
+// copies of Q, its K tile and its V tile at once (V in a second group,
+// so the scores run while V lands); K and V stay bf16 in shared memory
+// with rows padded by 16 bytes so ldmatrix's row reads hit distinct
+// banks.  S = Q K^T runs on mma.sync m16n8k16 with the group's query
+// heads as the 16 rows (rep < 16 pads with zero rows: free work in a
+// latency-bound call); each of the 8 warps takes 8 keys, and the row max
+// and sum cross warps through a few floats of shared memory.  P goes to
+// shared memory as bf16 and is the A operand of O = P V, with V read by
+// ldmatrix.trans and the warps splitting D.
+//
+// CUDA-core route (fp32, head dim 8, groups above 16): `decode_kernel`,
+// on the same 64-row splits, walked in two 32-row tiles: fp32
+// stays off the tensor cores because TF32 (~1e-3) misses its 2e-5
+// tolerance, head dim 8 because mma needs a depth of 16.
+//
+// The combine, both routes: one block per (row of the group, KV head,
+// batch row), threads along D.  It reads each live split's m and l once
+// into shared memory, computes each split's weight once, and sums the
+// partials with independent 16-byte loads.  (Folding it into the split
+// kernel -- the last block of a (b, hk) to finish combines -- needs a
+// counter zeroed for every call, which is a launch of its own.)
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mma.cuh"
+
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kNegInf = -0.7f * 3.402823466e38f;  // -0.7 * FLT_MAX
-constexpr int kTile = 32;        // KV rows per tile == warp size
+constexpr int kSplit = 64;       // cache rows per split
+constexpr int kTile = 32;        // CUDA-core KV tile == warp size
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSS = kTile + 1;   // padded stride of the score tile
+constexpr int kTcRows = 16;      // mma rows: the group, zero-padded
+constexpr int kTcMaxGroup = 16;
+constexpr int kCombineThreads = 64;
+constexpr int kMaxCombineSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
@@ -67,6 +103,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+bool tc_takes(int dtype, int D, int rep) {
+  return dtype == 1 && rep >= 1 && rep <= kTcMaxGroup &&
+         (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
+}
+
 size_t smem_bytes(int rep, int D) {
   // q (rep x D), k (tile x D+1), v (tile x D), scores (rep x tile+1),
   // acc (rep x D), m / l / alpha (rep each)
@@ -74,16 +115,25 @@ size_t smem_bytes(int rep, int D) {
                           (size_t)rep * kSS + (size_t)rep * D + 3 * rep);
 }
 
+size_t tc_smem_bytes(int D) {
+  // q (16 x D+8), k and v (64 x D+8), p (16 x 64+8) bf16; row max and
+  // row sum of each warp (2 x 8 x 16 floats)
+  return 2 * ((size_t)kTcRows * (D + 8) + 2 * (size_t)kSplit * (D + 8) +
+              kTcRows * (kSplit + 8)) +
+         sizeof(float) * 2 * kWarps * kTcRows;
+}
+
 // One block: split blockIdx.x of KV head blockIdx.y of batch row
-// blockIdx.z.  With ws == nullptr (one split) it writes the normalized
-// output; otherwise the split's partial, (rep, D + 2) floats per split:
-// acc[0..D), m, l.
+// blockIdx.z.  With ws_acc == nullptr (one split) it writes the
+// normalized output; otherwise the split's partial: acc (rep, D) and
+// (m, l) for each of the rep rows.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lengths,
-              T* __restrict__ o, float* __restrict__ ws, int S, int H,
-              int Hkv, int chunk, float scale) {
+              T* __restrict__ o, float* __restrict__ ws_acc,
+              float* __restrict__ ws_ml, int S, int H, int Hkv,
+              float scale) {
   static_assert(kTile * D % kThreads == 0, "tile loads must split evenly");
   constexpr int DP = D + 1;
   const int split = blockIdx.x;
@@ -92,6 +142,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int rep = H / Hkv;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
+
+  const int start = split * kSplit;
+  const int end = min(start + kSplit, min(lengths[b], S));
+  if (ws_acc != nullptr && start >= end) return;  // the combine skips it
 
   extern __shared__ float smem[];
   float* qs = smem;                 // rep x D
@@ -103,8 +157,6 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* ls = ms + rep;             // rep
   float* as = ls + rep;             // rep
 
-  const int start = split * chunk;
-  const int end = min(start + chunk, min(lengths[b], S));
   // the group's query heads hk*rep .. hk*rep+rep-1 are contiguous
   const size_t q_off = ((size_t)b * H + (size_t)hk * rep) * D;
   for (int i = tid; i < rep * D; i += kThreads) {
@@ -176,54 +228,275 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   __syncthreads();
 
-  if (ws == nullptr) {
+  if (ws_acc == nullptr) {
     for (int i = tid; i < rep * D; i += kThreads) {
       const int r = i / D;
       o[q_off + i] = from_f32<T>(accs[i] / fmaxf(ls[r], 1e-30f));
     }
     return;
   }
-  float* part = ws + ((size_t)(b * Hkv + hk) * gridDim.x + split) * rep *
-                         (D + 2);
-  for (int i = tid; i < rep * D; i += kThreads)
-    part[(i / D) * (D + 2) + i % D] = accs[i];
+  const size_t part = (size_t)(b * Hkv + hk) * gridDim.x + split;
+  float* pacc = ws_acc + part * rep * D;
+  float* pml = ws_ml + part * rep * 2;
+  for (int i = tid; i < rep * D; i += kThreads) pacc[i] = accs[i];
   for (int r = tid; r < rep; r += kThreads) {
-    part[r * (D + 2) + D] = ms[r];
-    part[r * (D + 2) + D + 1] = ls[r];
+    pml[2 * r] = ms[r];
+    pml[2 * r + 1] = ls[r];
   }
 }
 
-// Combine the n_split partials of one (KV head, batch row) into the output.
-template <typename T>
+// Tensor-core split kernel (bf16): one 64-row split of one (KV head,
+// batch row), the group's rep query heads as the 16 mma rows.  Same
+// outputs as decode_kernel.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-combine_kernel(const float* __restrict__ ws, T* __restrict__ o, int H,
-               int Hkv, int D, int n_split) {
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
+decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
+                 const bf16* __restrict__ vc, const int* __restrict__ lengths,
+                 bf16* __restrict__ o, float* __restrict__ ws_acc,
+                 float* __restrict__ ws_ml, int S, int H, int Hkv,
+                 float scale) {
+  constexpr int RS = D + 8;               // K/V/Q row stride (elements)
+  constexpr int PS = kSplit + 8;          // P row stride
+  constexpr int CH = D / 8;               // 16-byte chunks per row
+  constexpr int NPAIR = D / 16;           // 16-column output slabs
+  constexpr int PPW = (NPAIR + kWarps - 1) / kWarps;  // slabs per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kTcRows * RS;
+  bf16* vs = ks + kSplit * RS;
+  bf16* ps = vs + kSplit * RS;
+  float* red_m = reinterpret_cast<float*>(ps + kTcRows * PS);
+  float* red_l = red_m + kWarps * kTcRows;
+
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
   const int rep = H / Hkv;
-  const size_t stride = (size_t)rep * (D + 2);      // one split's partial
-  const float* base = ws + (size_t)(b * Hkv + hk) * n_split * stride;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  const int start = split * kSplit;
+  const int end = min(start + kSplit, min(lengths[b], S));
   const size_t q_off = ((size_t)b * H + (size_t)hk * rep) * D;
-  for (int i = threadIdx.x; i < rep * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    float m = kNegInf;
-    for (int s = 0; s < n_split; ++s)
-      m = fmaxf(m, base[s * stride + r * (D + 2) + D]);
-    float l = 0.f, acc = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float* p = base + s * stride + r * (D + 2);
-      const float w = expf(p[D] - m);
-      l = fmaf(p[D + 1], w, l);
-      acc = fmaf(p[c], w, acc);
+  if (start >= end) {
+    if (ws_acc == nullptr)              // one split and an empty row: 0
+      for (int i = tid; i < rep * D; i += kThreads)
+        o[q_off + i] = __float2bfloat16(0.f);
+    return;
+  }
+
+  // Q and K (group 0), then V (group 1); rows past the group or past
+  // `end` are zero-filled, so masked keys meet V rows of 0
+  for (int i = tid; i < kTcRows * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r < rep;
+    mma::cp_async16(qs + r * RS + c * 8, q + q_off + (ok ? r * D + c * 8 : 0),
+                    ok ? 16 : 0);
+  }
+  const size_t kv_stride = (size_t)Hkv * D;
+  const bf16* kb = kc + ((size_t)b * S * Hkv + hk) * D;
+  const bf16* vb = vc + ((size_t)b * S * Hkv + hk) * D;
+  for (int i = tid; i < kSplit * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = start + r < end;
+    mma::cp_async16(ks + r * RS + c * 8,
+                    kb + (size_t)(ok ? start + r : start) * kv_stride + c * 8,
+                    ok ? 16 : 0);
+  }
+  mma::cp_async_commit();
+  for (int i = tid; i < kSplit * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = start + r < end;
+    mma::cp_async16(vs + r * RS + c * 8,
+                    vb + (size_t)(ok ? start + r : start) * kv_stride + c * 8,
+                    ok ? 16 : 0);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();
+  __syncthreads();                        // Q and K have landed
+
+  // S = Q K^T: warp w takes keys 8w .. 8w + 7; two accumulators halve
+  // the dependent mma chain
+  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4], bb[2];
+    mma::ldsm_x4(a, qs + (lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+    mma::ldsm_x2(bb, ks + (warp * 8 + lane % 8) * RS + kk * 16 +
+                         ((lane / 8) % 2) * 8);
+    if (kk % 2)
+      mma::mma_bf16(s1, a, bb[0], bb[1]);
+    else
+      mma::mma_bf16(s0, a, bb[0], bb[1]);
+  }
+  // this lane's scores: rows g (e = 0, 1) and g + 8 (e = 2, 3), keys
+  // start + 8 warp + 2t + (e & 1)
+  float s[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = start + warp * 8 + 2 * t + (e & 1);
+    s[e] = key < end ? (s0[e] + s1[e]) * scale : kNegInf;
+  }
+  float mx[2] = {fmaxf(s[0], s[1]), fmaxf(s[2], s[3])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  if (t == 0) {
+    red_m[warp * kTcRows + g] = mx[0];
+    red_m[warp * kTcRows + g + 8] = mx[1];
+  }
+  __syncthreads();
+  float m[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    m[0] = fmaxf(m[0], red_m[w * kTcRows + g]);
+    m[1] = fmaxf(m[1], red_m[w * kTcRows + g + 8]);
+  }
+  const float p0 = expf(s[0] - m[0]), p1 = expf(s[1] - m[0]);
+  const float p2 = expf(s[2] - m[1]), p3 = expf(s[3] - m[1]);
+  float rs[2] = {p0 + p1, p2 + p3};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+  }
+  if (t == 0) {
+    red_l[warp * kTcRows + g] = rs[0];
+    red_l[warp * kTcRows + g + 8] = rs[1];
+  }
+  *reinterpret_cast<uint32_t*>(ps + g * PS + warp * 8 + 2 * t) =
+      mma::pack_bf16(p0, p1);
+  *reinterpret_cast<uint32_t*>(ps + (g + 8) * PS + warp * 8 + 2 * t) =
+      mma::pack_bf16(p2, p3);
+  mma::cp_async_wait<0>();
+  __syncthreads();                        // V, P and the row sums
+
+  // O = P V: warp w takes the 16-column slabs w, w + 8, ...
+  float acc[PPW][2][4];
+#pragma unroll
+  for (int j = 0; j < PPW; ++j)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kSplit / 16; ++kk) {
+    uint32_t pa[4];
+    mma::ldsm_x4(pa, ps + (lane % 16) * PS + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int j = 0; j < PPW; ++j) {
+      const int slab = warp + j * kWarps;
+      if (slab < NPAIR) {
+        uint32_t bb[4];
+        mma::ldsm_x4_t(bb, vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
+                                    RS + slab * 16 + (lane / 16) * 8);
+        mma::mma_bf16(acc[j][0], pa, bb[0], bb[1]);
+        mma::mma_bf16(acc[j][1], pa, bb[2], bb[3]);
+      }
     }
-    o[q_off + i] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+  }
+
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    l[0] += red_l[w * kTcRows + g];
+    l[1] += red_l[w * kTcRows + g + 8];
+  }
+  const size_t part = (size_t)(b * Hkv + hk) * gridDim.x + split;
+#pragma unroll
+  for (int j = 0; j < PPW; ++j) {
+    const int slab = warp + j * kWarps;
+    if (slab >= NPAIR) continue;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = slab * 16 + n * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {       // rows g, g + 8
+        const int r = g + 8 * h;
+        if (r >= rep) continue;
+        const float x0 = acc[j][n][2 * h], x1 = acc[j][n][2 * h + 1];
+        if (ws_acc == nullptr) {
+          const float inv = 1.f / fmaxf(l[h], 1e-30f);
+          *reinterpret_cast<uint32_t*>(o + q_off + r * D + col) =
+              mma::pack_bf16(x0 * inv, x1 * inv);
+        } else {
+          *reinterpret_cast<float2*>(ws_acc + (part * rep + r) * D + col) =
+              make_float2(x0, x1);
+        }
+      }
+    }
+  }
+  if (ws_acc != nullptr && warp == 0 && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      if (r < rep) {
+        ws_ml[(part * rep + r) * 2] = m[h];
+        ws_ml[(part * rep + r) * 2 + 1] = l[h];
+      }
+    }
+  }
+}
+
+// Combine the live splits of one query head: row blockIdx.x of the group
+// of KV head blockIdx.y, batch row blockIdx.z.  Dynamic shared memory:
+// m (then the weights) and l of each split.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+combine_kernel(const float* __restrict__ ws_acc,
+               const float* __restrict__ ws_ml,
+               const int* __restrict__ lengths, T* __restrict__ o, int S,
+               int H, int Hkv, int D, int n_split) {
+  extern __shared__ float cs[];
+  float* sw = cs;
+  float* sl = cs + n_split;
+  const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = H / Hkv;
+  const int tid = threadIdx.x;
+  const int len = min(lengths[b], S);
+  const int n_live = len > 0 ? (len + kSplit - 1) / kSplit : 0;
+  const size_t part0 = (size_t)(b * Hkv + hk) * n_split;
+  for (int s = tid; s < n_live; s += kCombineThreads) {
+    const float* ml = ws_ml + ((part0 + s) * rep + r) * 2;
+    sw[s] = ml[0];
+    sl[s] = ml[1];
+  }
+  __syncthreads();
+  float m = kNegInf;
+  for (int s = 0; s < n_live; ++s) m = fmaxf(m, sw[s]);
+  __syncthreads();                        // every m read before the weights
+  for (int s = tid; s < n_live; s += kCombineThreads) sw[s] = expf(sw[s] - m);
+  __syncthreads();
+  float l = 0.f;
+  for (int s = 0; s < n_live; ++s) l = fmaf(sl[s], sw[s], l);
+  l = fmaxf(l, 1e-30f);
+  const size_t stride = (size_t)rep * D;  // one split's partial
+  const float* base = ws_acc + (part0 * rep + r) * D;
+  T* orow = o + ((size_t)b * H + (size_t)hk * rep + r) * D;
+  for (int c = 4 * tid; c < D; c += 4 * kCombineThreads) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int s = 0; s < n_live; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(base + s * stride + c);
+      const float w = sw[s];
+      acc.x = fmaf(x.x, w, acc.x);
+      acc.y = fmaf(x.y, w, acc.y);
+      acc.z = fmaf(x.z, w, acc.z);
+      acc.w = fmaf(x.w, w, acc.w);
+    }
+    orow[c] = from_f32<T>(acc.x / l);
+    orow[c + 1] = from_f32<T>(acc.y / l);
+    orow[c + 2] = from_f32<T>(acc.z / l);
+    orow[c + 3] = from_f32<T>(acc.w / l);
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, float* ws, int n_split, int B, int S, int H, int Hkv,
-           float scale, cudaStream_t stream) {
+           void* o, float* ws_acc, float* ws_ml, int n_split, int B, int S,
+           int H, int Hkv, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / Hkv, D);
   auto kernel = decode_kernel<T, D>;
   if (smem > 48 * 1024) {
@@ -231,60 +504,117 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  // chunk: a multiple of the tile that covers S in n_split pieces
-  const int chunk = ((S + n_split - 1) / n_split + kTile - 1) / kTile * kTile;
-  const dim3 grid(n_split, Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<dim3(n_split, Hkv, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o),
-      n_split > 1 ? ws : nullptr, S, H, Hkv, chunk, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return (int)err;
-  combine_kernel<T><<<dim3(Hkv, B), kThreads, 0, stream>>>(
-      ws, static_cast<T*>(o), H, Hkv, D, n_split);
+      static_cast<const T*>(v), lengths, static_cast<T*>(o), ws_acc, ws_ml,
+      S, H, Hkv, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const int* lengths,
+              void* o, float* ws_acc, float* ws_ml, int n_split, int B,
+              int S, int H, int Hkv, float scale, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(D);
+  auto kernel = decode_tc_kernel<D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3(n_split, Hkv, B), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), lengths, static_cast<bf16*>(o), ws_acc,
+      ws_ml, S, H, Hkv, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
-               const int* lengths, void* o, float* ws, int n_split, int B,
-               int S, int H, int Hkv, float scale, cudaStream_t s) {
+               const int* lengths, void* o, float* wa, float* wm,
+               int n_split, int B, int S, int H, int Hkv, float scale,
+               cudaStream_t s) {
   switch (D) {
-    case 8: return launch<T, 8>(q, k, v, lengths, o, ws, n_split, B, S, H, Hkv, scale, s);
-    case 16: return launch<T, 16>(q, k, v, lengths, o, ws, n_split, B, S, H, Hkv, scale, s);
-    case 32: return launch<T, 32>(q, k, v, lengths, o, ws, n_split, B, S, H, Hkv, scale, s);
-    case 64: return launch<T, 64>(q, k, v, lengths, o, ws, n_split, B, S, H, Hkv, scale, s);
-    case 128: return launch<T, 128>(q, k, v, lengths, o, ws, n_split, B, S, H, Hkv, scale, s);
-    case 256: return launch<T, 256>(q, k, v, lengths, o, ws, n_split, B, S, H, Hkv, scale, s);
+    case 8: return launch<T, 8>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 16: return launch<T, 16>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 32: return launch<T, 32>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 64: return launch<T, 64>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 128: return launch<T, 128>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 256: return launch<T, 256>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
     default: return -1;
   }
 }
 
+int dispatch_tc(int D, const void* q, const void* k, const void* v,
+                const int* lengths, void* o, float* wa, float* wm,
+                int n_split, int B, int S, int H, int Hkv, float scale,
+                cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_tc<16>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 32: return launch_tc<32>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 64: return launch_tc<64>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 128: return launch_tc<128>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 256: return launch_tc<256>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    default: return -1;
+  }
+}
+
+template <typename T>
+int launch_combine(const float* wa, const float* wm, const int* lengths,
+                   void* o, int n_split, int B, int S, int H, int Hkv, int D,
+                   cudaStream_t s) {
+  combine_kernel<T><<<dim3(H / Hkv, Hkv, B), kCombineThreads,
+                      2 * n_split * sizeof(float), s>>>(
+      wa, wm, lengths, static_cast<T*>(o), S, H, Hkv, D, n_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Bytes of shared memory one block needs; the wrapper refuses a group
-// that does not fit the card's 227 KB.
-extern "C" long long decode_attention_smem_bytes(int rep, int D) {
-  return (long long)smem_bytes(rep, D);
+// Bytes of shared memory one split block of `route` (1 CUDA cores, 2
+// tensor cores) needs; the wrapper refuses a group that does not fit
+// the card's 227 KB.
+extern "C" long long decode_attention_smem_bytes(int rep, int D, int route) {
+  return (long long)(route == 2 ? tc_smem_bytes(D) : smem_bytes(rep, D));
 }
 
 // Returns 0 on success, the cudaError_t of a refused launch, or -1 for a
-// head dim / dtype this kernel is not built for.  dtype: 0 fp32, 1 bf16.
-// ws: n_split * B * Hkv * rep * (D + 2) floats (unused when n_split == 1).
+// shape / dtype / route this library has no kernel for.  dtype: 0 fp32,
+// 1 bf16; route: 0 by shape, 1 CUDA cores, 2 tensor cores.  n_split must
+// be ceil(S / 64); ws holds B * Hkv * n_split * rep * (D + 2) floats
+// (acc, then m and l; unused when n_split == 1).
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* o, void* ws, int n_split, int B,
                                     int S, int H, int Hkv, int D,
-                                    float scale, int dtype, void* stream) {
+                                    float scale, int dtype, int route,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  float* w = static_cast<float*>(ws);
-  if (n_split < 1) return -1;
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, len, o, w, n_split, B, S, H, Hkv, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, len, o, w, n_split, B, S, H, Hkv, scale, s);
-  return -1;
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 ||
+      n_split != (S + kSplit - 1) / kSplit ||
+      2 * n_split * sizeof(float) > (size_t)kMaxCombineSmem ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  const int rep = H / Hkv;
+  float* wa = n_split > 1 ? static_cast<float*>(ws) : nullptr;
+  float* wm = wa ? wa + (size_t)B * Hkv * n_split * rep * D : nullptr;
+  if (route == 0) route = tc_takes(dtype, D, rep) ? 2 : 1;
+  int err;
+  if (route == 2) {
+    if (!tc_takes(dtype, D, rep)) return -1;
+    err = dispatch_tc(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+  } else if (route == 1) {
+    err = dtype == 0
+        ? dispatch_d<float>(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s)
+        : dispatch_d<bf16>(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+  } else {
+    return -1;
+  }
+  if (err != 0 || n_split == 1) return err;
+  return dtype == 0
+      ? launch_combine<float>(wa, wm, len, o, n_split, B, S, H, Hkv, D, s)
+      : launch_combine<bf16>(wa, wm, len, o, n_split, B, S, H, Hkv, D, s);
 }
 
 // Message of a cudaError_t returned by the launch entry above.

@@ -32,6 +32,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
+// Two 8 x 8 b16 matrices; lanes 0-15 give the row addresses as above.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
 // The same, each matrix transposed on the way into registers.
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(

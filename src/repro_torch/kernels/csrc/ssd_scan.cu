@@ -33,10 +33,15 @@
 // cumulative sums that reach a few hundred over a chunk; in fp32 that
 // difference loses ~1e-5 of relative precision, which moves y past the
 // fp32 tolerance (2e-5 + 2e-5 |y|) against the sequential recurrence at
-// the serving shape below.  The cumsum and the differences are therefore taken in fp64
-// (Q values and Q^2/2 subtractions per chunk), and only their exp in
-// fp32: the products of per-step decays the recurrence multiplies are
-// then reproduced to fp32 rounding.
+// the serving shape below.  The cumsum and the differences are therefore
+// taken in fp64 (Q values and Q^2/2 subtractions per chunk).  At that
+// shape y is a sum of terms of up to a few hundred in magnitude, so a
+// score matrix M = (C B^T) o decay o dt rounded to fp32 still moves y by
+// up to ~1e-4 from the recurrence evaluated in fp64 (a CPU model of this
+// kernel: 0.8-1.2 of the tolerance over three seeds; the fp32 recurrence
+// itself lands at 1.03-1.16).  So M is formed and kept in fp64 and both
+// sums of y (M x and C h_prev^T) accumulate in fp64, which brings the
+// model to 0.08-0.12 of the tolerance; the state stays fp32.
 //
 // What bounds it on an H100.  At mamba2-130m's serving shapes (B = 4,
 // S = 512, H = 24, P = 64, G = 1, N = 128, Q = 64) one call moves ~17 MB
@@ -52,7 +57,7 @@
 //
 // CUDA-core route (fp32, and shapes the tensor cores do not take):
 // `ssd_kernel` below, one 256-thread block per (b, h) that walks the
-// chunks in fp32 (96 blocks at B = 4, 24 at B = 1; ~137 KB of shared
+// chunks in fp32 (96 blocks at B = 4, 24 at B = 1; ~155 KB of shared
 // memory allows one block per SM).  It is bound by the length of one
 // block's chain of chunks and by issuing shared-memory loads and FMAs.
 //
@@ -118,10 +123,11 @@ __device__ __forceinline__ void unpack(float4 v, float (&o)[4]) {
 
 size_t smem_bytes(int P, int N, int Q) {
   const size_t QS = (size_t)Q + 4;
-  // state (N x P), B^T and C^T (N x QS each), x (Q x P), M^T (Q x QS),
-  // cs (Q doubles), w / exp(cs) / dt (Q each)
-  return sizeof(float) * ((size_t)N * P + 2 * (size_t)N * QS +
-                          (size_t)Q * P + (size_t)Q * QS + 5 * (size_t)Q);
+  // fp64: M^T (Q x QS), cs (Q); fp32: state (N x P), B^T and C^T (N x QS
+  // each), x (Q x P), w / dt (Q each)
+  return sizeof(double) * ((size_t)Q * QS + Q) +
+         sizeof(float) * ((size_t)N * P + 2 * (size_t)N * QS +
+                          (size_t)Q * P + 2 * (size_t)Q);
 }
 
 // One block: head blockIdx.x of batch row blockIdx.y, all chunks.
@@ -140,17 +146,15 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int QT = Q / 4, PT = P / 4, NT = N / 4;
 
   extern __shared__ float4 smem4[];            // 16-byte aligned
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* ht = smem;                 // N x P: the state, n-major
+  double* Mt = reinterpret_cast<double*>(smem4);  // Q x QS: Mt[j][i] = M[i][j]
+  double* cs = Mt + Q * QS;         // Q: inclusive cumsum of dt * A
+  // the fp32 arrays start 16-byte aligned: Q (Q + 5) doubles, Q % 4 == 0
+  float* ht = reinterpret_cast<float*>(cs + Q);  // N x P: the state
   float* Bt = ht + N * P;           // N x QS: B^T of the chunk
   float* Ct = Bt + N * QS;          // N x QS: C^T of the chunk
   float* xs = Ct + N * QS;          // Q x P
-  float* Mt = xs + Q * P;           // Q x QS: Mt[j][i] = M[i][j]
-  // Q: inclusive cumsum of dt * A, fp64 (the offset is 16-byte aligned)
-  double* cs = reinterpret_cast<double*>(Mt + Q * QS);
-  float* wj = reinterpret_cast<float*>(cs + Q);  // Q: exp(cs_end - cs_j) dt_j
-  float* ecs = wj + Q;              // Q: exp(cs_i)
-  float* dts = ecs + Q;             // Q: dt
+  float* wj = xs + Q * P;           // Q: exp(cs_end - cs_j) dt_j
+  float* dts = wj + Q;              // Q: dt
 
   const float A = -expf(a_log[h]);
   for (int i = tid; i < N * P; i += kThreads) ht[i] = 0.f;
@@ -193,16 +197,15 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
 
     const double cs_end = cs[Q - 1];
-    for (int j = tid; j < Q; j += kThreads) {
+    for (int j = tid; j < Q; j += kThreads)
       wj[j] = expf((float)(cs_end - cs[j])) * dts[j];
-      ecs[j] = expf((float)cs[j]);
-    }
 
-    // (A) M[i][j] for the lower-triangle 4 x 4 tiles, stored as Mt[j][i]
+    // (A) M[i][j] in fp64 for the lower-triangle 4 x 4 tiles, stored as
+    // Mt[j][i]
     for (int t = tid; t < QT * QT; t += kThreads) {
       const int ti = t / QT, tj = t % QT;
       if (tj > ti) continue;
-      float acc[4][4] = {};
+      double acc[4][4] = {};
       for (int n = 0; n < N; ++n) {
         float c[4], bb[4];
         unpack(ld4(Ct + n * QS + 4 * ti), c);
@@ -210,36 +213,36 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) acc[r][k] = fmaf(c[r], bb[k], acc[r][k]);
+          for (int k = 0; k < 4; ++k)
+            acc[r][k] = fma((double)c[r], (double)bb[k], acc[r][k]);
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int j = 4 * tj + k;
-        float m[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int i = 4 * ti + r;
-          m[r] = j <= i ? acc[r][k] * expf((float)(cs[i] - cs[j])) * dts[j]
-                        : 0.f;
+          Mt[j * QS + i] = j <= i ? acc[r][k] * exp(cs[i] - cs[j]) * dts[j]
+                                  : 0.0;
         }
-        st4(Mt + j * QS + 4 * ti, make_float4(m[0], m[1], m[2], m[3]));
       }
     }
     __syncthreads();
 
-    // (B + C) y = M x + exp(cs) * (C h_prev^T), per 4 x 4 tile of (i, p)
+    // (B + C) y = M x + exp(cs) * (C h_prev^T), per 4 x 4 tile of (i, p),
+    // both sums in fp64
     for (int t = tid; t < QT * PT; t += kThreads) {
       const int ti = t / PT, tp = t % PT;
-      float intra[4][4] = {}, inter[4][4] = {};
+      double intra[4][4] = {}, inter[4][4] = {};
       for (int j = 0; j < 4 * ti + 4; ++j) {
-        float m[4], xv[4];
-        unpack(ld4(Mt + j * QS + 4 * ti), m);
+        const double* m = Mt + j * QS + 4 * ti;
+        float xv[4];
         unpack(ld4(xs + j * P + 4 * tp), xv);
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            intra[r][k] = fmaf(m[r], xv[k], intra[r][k]);
+            intra[r][k] = fma(m[r], (double)xv[k], intra[r][k]);
       }
       for (int n = 0; n < N; ++n) {
         float c[4], hv[4];
@@ -249,16 +252,16 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            inter[r][k] = fmaf(c[r], hv[k], inter[r][k]);
+            inter[r][k] = fma((double)c[r], (double)hv[k], inter[r][k]);
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = 4 * ti + r;
-        const float e = ecs[i];
+        const double e = exp(cs[i]);
         T* yrow = y + ((size_t)(b * S + s0 + i) * H + h) * P + 4 * tp;
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          yrow[k] = from_f32<T>(intra[r][k] + inter[r][k] * e);
+          yrow[k] = from_f32<T>((float)(intra[r][k] + inter[r][k] * e));
       }
     }
     __syncthreads();  // every read of h_prev is done

@@ -1,19 +1,29 @@
-"""Flash-decode (one query token vs a KV cache): CUDA kernel and wrapper.
+"""Flash-decode (one query token vs a KV cache): CUDA kernels and wrapper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention``, body ``_decode_kernel``, ``_validate``).  The
-kernel is ``csrc/decode_attention.cu`` (built for sm_90a by
-:mod:`.build`); its source note says what bounds it on an H100 and how
+kernels are ``csrc/decode_attention.cu`` (built for sm_90a by
+:mod:`.build`); its source note says what bounds them on an H100 and how
 the design answers.
 
+The library has two routes for the split kernel, chosen by dtype, head
+dim and GQA group before the launch (:func:`route`): bf16 with a head
+dim of 16..256 and at most 16 query heads per KV head runs the
+tensor-core kernel (``mma.sync``), everything else the CUDA-core kernel.
+Both split the cache into :data:`SPLIT_ROWS`-row pieces and share one
+combine kernel.  :func:`decode_attention` always lets the shape decide;
+:func:`launch` can force a route, which only ``chip_smoke.py`` and the
+card tests do, to time and check both kernels on the same inputs.
+
 ``_validate`` raises the reference's ``ValueError`` messages.  For a
-CUDA tensor the wrapper then launches the kernel or raises; for a CPU
+CUDA tensor the wrapper then launches the kernels or raises; for a CPU
 tensor it computes the plain version, :func:`.ref.decode_attention_ref`.
-``stats`` counts both.
+``stats`` counts both, launches by route.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,21 +31,37 @@ import torch
 from . import build
 from .ref import decode_attention_ref
 
-TARGET_BLOCKS = 264               # two blocks per SM on an H100
-MIN_SPLIT_ROWS = 64               # two 32-row tiles
+SPLIT_ROWS = 64                   # cache rows per split (one tile)
+TC_MAX_GROUP = 16                 # query heads per KV head: mma's 16 rows
 
 stats = build.KernelStats()
 
 
-def num_splits(B: int, S: int, Hkv: int) -> int:
-    """How many blocks share one (batch row, KV head)'s cache length.
+def num_splits(S: int) -> int:
+    """How many blocks share one (batch row, KV head)'s cache: one per
+    :data:`SPLIT_ROWS` rows, so a block's chain is one tile.  Decided from
+    the shape only (the valid lengths live on the card); splits past a
+    row's length exit at once and the combine skips them."""
+    return max(1, -(-S // SPLIT_ROWS))
 
-    Enough splits for about two blocks per SM of an H100 (132 SMs), but
-    no split shorter than two 32-row tiles, so the combine pass stays
-    small.  Decided from shapes only: the valid lengths live on the card.
-    """
-    return max(1, min(-(-S // MIN_SPLIT_ROWS),
-                      -(-TARGET_BLOCKS // (B * Hkv))))
+
+def route(dtype: str, head_dim: int, rep: int) -> str:
+    """The route the C entry takes by shape: ``"tensor_core"`` for bf16
+    with a head dim mma can take and a GQA group of at most 16 heads
+    (mma's 16 rows), else ``"cuda_core"`` (fp32 needs more than TF32's
+    precision; head dim 8 is below mma's depth of 16)."""
+    if (dtype == "bfloat16" and head_dim in build.TENSOR_CORE_HEAD_DIMS
+            and 1 <= rep <= TC_MAX_GROUP):
+        return "tensor_core"
+    return "cuda_core"
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(rep: int, D: int, taken: str) -> int:
+    """Shared memory of one split block, asked of the library once per
+    (group, head dim, route)."""
+    return build.library("decode_attention").decode_attention_smem_bytes(
+        rep, D, build.ROUTE_CODES[taken])
 
 
 def _dtype_name(dtype) -> str:
@@ -96,8 +122,6 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_kv: int = 512):
     if q.device.type == "cpu":
         stats.cpu_call()
         return decode_attention_ref(q, k_cache, v_cache, lengths)
-    B, _, H, D = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
     if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
         raise ValueError(f"decode_attention: q and caches must share one "
@@ -107,28 +131,43 @@ def decode_attention(q, k_cache, v_cache, lengths, *, block_kv: int = 512):
     if dtype not in build.DTYPE_CODES or v_cache.dtype != q.dtype:
         raise ValueError(f"decode_attention: q and caches must be float32 "
                          f"or bfloat16, got {q.dtype}, {v_cache.dtype}")
+    D = q.shape[3]
     if D not in build.HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {D} has no CUDA "
                          f"kernel; supported: {build.HEAD_DIMS}")
-    lib = build.library("decode_attention")
-    if lib.decode_attention_smem_bytes(H // Hkv, D) > build.MAX_SMEM_BYTES:
-        raise ValueError(f"decode_attention: a GQA group of {H // Hkv} "
-                         f"heads at D={D} does not fit one block")
-    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), \
-        v_cache.contiguous()
+    return launch(q, k_cache, v_cache, lengths)
+
+
+def launch(q, k_cache, v_cache, lengths, *, force: str = ""):
+    """Launch the CUDA kernels on checked CUDA tensors.  ``force`` ``""``
+    lets the shape decide (:func:`route`); ``"cuda_core"`` or
+    ``"tensor_core"`` forces the split kernel's route, and one that
+    cannot take the shape raises."""
+    code = build.route_code("decode_attention", force)
+    B, _, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    dev = q.device
+    dtype = _dtype_name(q.dtype)
+    taken = force or route(dtype, D, rep)
+    if _smem_bytes(rep, D, taken) > build.MAX_SMEM_BYTES:
+        raise ValueError(f"decode_attention: a GQA group of {rep} heads at "
+                         f"D={D} does not fit one block")
+    q, k_cache, v_cache = build.aligned(q), build.aligned(k_cache), \
+        build.aligned(v_cache)
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    n_split = num_splits(B, S, Hkv)
-    ws = (torch.empty((B, Hkv, n_split, H // Hkv, D + 2),
-                      dtype=torch.float32, device=dev)
+    n_split = num_splits(S)
+    ws = (torch.empty((B, Hkv, n_split, rep, D + 2), dtype=torch.float32,
+                      device=dev)
           if n_split > 1 else None)
-    err = lib.decode_attention_fwd(
+    err = build.library("decode_attention").decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, n_split, B, S, H, Hkv, D,
-        1.0 / math.sqrt(D), build.DTYPE_CODES[dtype],
+        1.0 / math.sqrt(D), build.DTYPE_CODES[dtype], code,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check("decode_attention", err)
     # the split kernel, then (n_split > 1) the combine kernel
-    stats.launched(2 if n_split > 1 else 1)
+    stats.launched(2 if n_split > 1 else 1, route=taken)
     return out

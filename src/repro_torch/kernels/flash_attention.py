@@ -28,14 +28,12 @@ from .ref import flash_attention_ref
 
 stats = build.KernelStats()
 
-TENSOR_CORE_HEAD_DIMS = (16, 32, 64, 128, 256)
-
 
 def route(dtype: str, head_dim: int) -> str:
     """The route the C entry takes by shape: ``"tensor_core"`` for bf16
     with a head dim mma can take, else ``"cuda_core"`` (fp32 needs more
     than TF32's precision; head dim 8 is below mma's depth of 16)."""
-    if dtype == "bfloat16" and head_dim in TENSOR_CORE_HEAD_DIMS:
+    if dtype == "bfloat16" and head_dim in build.TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
 
@@ -74,6 +72,7 @@ def launch(q, k, v, *, causal: bool, window: int, force: str = ""):
     lets the shape decide (:func:`route`); ``"cuda_core"`` or
     ``"tensor_core"`` forces a route, and one that cannot take the shape
     raises."""
+    code = build.route_code("flash_attention", force)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dtype = str(q.dtype).removeprefix("torch.")
@@ -84,8 +83,7 @@ def launch(q, k, v, *, causal: bool, window: int, force: str = ""):
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
         H, Hkv, D, int(causal), int(window), 1.0 / math.sqrt(D),
-        build.DTYPE_CODES[dtype],
-        build.ROUTE_CODES[force] if force else build.ROUTE_BY_SHAPE,
+        build.DTYPE_CODES[dtype], code,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err)
     stats.launched(route=taken)

@@ -47,16 +47,18 @@ def ssd_scan_ref(x, dt, a_log, B_in, C_in, *, chunk: int = 64):
 
     x: (B, S, H, P); dt: (B, S, H) fp32; a_log: (H,); B_in/C_in:
     (B, S, G, N).  Returns y (B, S, H, P) in x's dtype and the final
-    state h (B, H, P, N) in fp32.  ``chunk`` is unused, as in the
-    reference.
+    state h (B, H, P, N), both computed in fp32 (in fp64 for fp64
+    inputs: ``chip_smoke.py`` holds the fp32 kernel against that).
+    ``chunk`` is unused, as in the reference.
     """
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
-    A = -torch.exp(a_log.float())
-    Bh = torch.repeat_interleave(B_in, H // G, dim=2).float()   # (B,S,H,N)
-    Ch = torch.repeat_interleave(C_in, H // G, dim=2).float()
-    xf, dt = x.float(), dt.float()
-    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ft = torch.promote_types(x.dtype, torch.float32)
+    A = -torch.exp(a_log.to(ft))
+    Bh = torch.repeat_interleave(B_in, H // G, dim=2).to(ft)    # (B,S,H,N)
+    Ch = torch.repeat_interleave(C_in, H // G, dim=2).to(ft)
+    xf, dt = x.to(ft), dt.to(ft)
+    h = torch.zeros((Bb, H, P, N), dtype=ft, device=x.device)
     ys = []
     for t in range(S):
         da = torch.exp(dt[:, t] * A)                             # (B,H)

@@ -5,6 +5,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/rglru_scan.py``
 ``csrc/rglru_scan.cu`` (built for sm_90a by :mod:`.build`); its source
 note says what bounds it on an H100 and how the design answers.
 
+One kernel takes every shape: chunks of :data:`CHUNK_STEPS` steps
+scanned in parallel, then joined.  Its launches count under the route
+name ``"chunked"``.
+
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it computes the plain version, :func:`.ref.rglru_scan_ref`.
 ``stats`` counts both.
@@ -18,6 +22,8 @@ from . import build
 from .ref import rglru_scan_ref
 
 stats = build.KernelStats()
+
+CHUNK_STEPS = 32                  # steps per chunk (kChunk in the kernel)
 
 
 def rglru_scan(a, b, *, block_s: int = 128, block_w: int = 512):
@@ -49,10 +55,9 @@ def rglru_scan(a, b, *, block_s: int = 128, block_w: int = 512):
                          f"bfloat16, got {a.dtype}, {b.dtype}")
     a, b = a.contiguous(), b.contiguous()
     h = torch.empty((B, S, W), dtype=torch.float32, device=dev)
-    lib = build.library("rglru_scan")
-    err = lib.rglru_scan_fwd(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S,
-                             W, build.DTYPE_CODES[dtype],
-                             torch.cuda.current_stream(dev).cuda_stream)
+    err = build.library("rglru_scan").rglru_scan_fwd(
+        a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, W,
+        build.DTYPE_CODES[dtype], torch.cuda.current_stream(dev).cuda_stream)
     build.check("rglru_scan", err)
-    stats.launched()
+    stats.launched(route="chunked")
     return h

@@ -103,6 +103,7 @@ def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
     lets the shape decide (:func:`route`); ``"cuda_core"`` or
     ``"tensor_core"`` forces a route, and one that cannot take the shape
     raises."""
+    code = build.route_code("ssd_scan", force)
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
     dev = x.device
@@ -133,8 +134,7 @@ def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
         C_in.data_ptr(), y.data_ptr(), state.data_ptr(),
         *(t.data_ptr() if t is not None else None
           for t in (ws, h_in, cs_end)), Bb, S, H, G, P, N, chunk,
-        build.DTYPE_CODES[dtype],
-        build.ROUTE_CODES[force] if force else build.ROUTE_BY_SHAPE,
+        build.DTYPE_CODES[dtype], code,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check("ssd_scan", err)
     stats.launched(KERNELS_PER_CALL[taken], route=taken)

@@ -1,0 +1,335 @@
+"""The port's redesigned decode_attention and rglru_scan.
+
+* The decode route rule (pure Python, mirrored by the C entry): bf16 at
+  both serving GQA groups takes the tensor cores, fp32, head dim 8 and
+  groups above 16 the CUDA cores; the cache splits into one block per 64
+  rows.  A forced route must be one the kernels have.  CPU tensors take
+  the plain versions and launch nothing.
+* Test-local PyTorch mirrors of the two new algorithms, run on the CPU:
+  the decode split kernel (one 64-row split per block, partials m / l /
+  acc with P rounded to bf16 before P·V) and its combine (weights
+  exp(m_s - max m) over the live splits), and the chunked RG-LRU scan
+  (chunk products and end states, the carry folded over chunks, the
+  rescan from each chunk's entering state, with separately rounded
+  multiplies and adds).  Each is held against the JAX package's Pallas
+  kernel (interpret mode, as ``tests/test_kernels.py`` runs it) and the
+  port's plain version, at bf16's tolerance (atol = rtol = 2e-2) for
+  decode and fp32's (atol = rtol = 2e-5) for the scan.
+
+The kernels themselves run only on a card (``tests/test_torch_kernels.py``,
+``chip_smoke.py``).
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import KERNEL_STATS, build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as decode_mod  # noqa: E402
+from repro_torch.kernels import rglru_scan as rglru_mod  # noqa: E402
+
+jax.config.update("jax_enable_x64", False)
+
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # tests/test_kernels.py's bf16
+FP32_TOL = dict(atol=2e-5, rtol=2e-5)   # and its fp32
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """Tiny CPU ops run far slower under an oversubscribed intra-op pool
+    (several test workers share the host); the tests need one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor)
+                      else x, np.float32)
+
+
+# --------------------------------------------------------------------- #
+# route rules
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype,D,rep,want", [
+    ("bfloat16", 256, 4, "tensor_core"),     # gemma3-1b
+    ("bfloat16", 256, 16, "tensor_core"),    # recurrentgemma-9b
+    ("bfloat16", 64, 1, "tensor_core"),
+    ("bfloat16", 16, 2, "tensor_core"),
+    ("bfloat16", 8, 4, "cuda_core"),         # below mma's depth of 16
+    ("bfloat16", 256, 32, "cuda_core"),      # beyond mma's 16 rows
+    ("float32", 256, 4, "cuda_core"),        # TF32 misses fp32's 2e-5
+    ("float32", 8, 1, "cuda_core"),
+])
+def test_decode_route_rule(dtype, D, rep, want):
+    assert decode_mod.route(dtype, D, rep) == want
+
+
+@pytest.mark.parametrize("S,want", [(512, 8), (1024, 16), (64, 1), (65, 2),
+                                    (1, 1)])
+def test_decode_splits_one_per_tile(S, want):
+    assert decode_mod.num_splits(S) == want
+
+
+def test_route_codes_name_each_kernels_two_routes():
+    assert build.ROUTE_CODES == {"cuda_core": 1, "tensor_core": 2}
+    assert build.ROUTE_BY_SHAPE == 0
+    assert build.route_code("decode_attention", "") == 0
+    assert build.route_code("decode_attention", "cuda_core") == 1
+    assert build.route_code("decode_attention", "tensor_core") == 2
+
+
+def _launch_args(mod):
+    """CPU tensors of a small valid shape for ``mod.launch``: the forced
+    route's name is checked before anything touches them."""
+    x = torch.zeros((1, 64, 2, 16))
+    if mod == "flash_attention":
+        return (x, x, x), dict(causal=True, window=0)
+    if mod == "decode_attention":
+        return (x[:, :1], x, x, torch.full((1,), 64)), {}
+    return (x, x[..., 0], torch.zeros(2), x, x), dict(chunk=16)
+
+
+@pytest.mark.parametrize("bad", ["sequential", "chunked", "tensorcore"])
+@pytest.mark.parametrize("mod", ["flash_attention", "decode_attention",
+                                 "ssd_scan"])
+def test_a_forced_route_must_be_one_the_kernel_has(mod, bad):
+    """A mistyped or foreign route name raises before any launch, and
+    no launch is counted."""
+    import importlib
+    module = importlib.import_module(f"repro_torch.kernels.{mod}")
+    before = dict(KERNEL_STATS[mod].launches_by_route)
+    args, kw = _launch_args(mod)
+    with pytest.raises(ValueError, match=f"{mod}: no route '{bad}'"):
+        module.launch(*args, force=bad, **kw)
+    assert dict(KERNEL_STATS[mod].launches_by_route) == before
+
+
+def test_cpu_tensors_take_the_plain_route_at_new_route_shapes():
+    """At shapes the tensor-core decode and the chunked scan take, CPU
+    tensors still compute the plain versions and launch nothing."""
+    rng = np.random.default_rng(0)
+    names = ("decode_attention", "rglru_scan")
+    before = {n: (dict(KERNEL_STATS[n].launches_by_route),
+                  KERNEL_STATS[n].cpu_calls) for n in names}
+    q = torch.from_numpy(rng.standard_normal((1, 1, 16, 256))).bfloat16()
+    kc = torch.from_numpy(rng.standard_normal((1, 128, 1, 256))).bfloat16()
+    assert decode_mod.route("bfloat16", 256, 16) == "tensor_core"
+    got = ops.decode_attention(q, kc, kc, torch.tensor([70]), block_kv=128)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    a = torch.from_numpy(rng.uniform(0.1, 0.9, (1, 512, 16))).float()
+    h = ops.rglru_scan(a, a)
+    assert h.shape == a.shape and h.dtype == torch.float32
+    for n in names:
+        assert dict(KERNEL_STATS[n].launches_by_route) == before[n][0]
+        assert KERNEL_STATS[n].cpu_calls == before[n][1] + 1
+
+
+# --------------------------------------------------------------------- #
+# decode: a mirror of the tensor-core split kernel and the combine
+# --------------------------------------------------------------------- #
+def decode_split_mirror(q, kc, vc, lengths, split=decode_mod.SPLIT_ROWS):
+    """The split kernel and combine on bf16 tensors, in fp32 on the CPU.
+
+    Per (row, KV head): each live split (start < length) scores its 64
+    rows with the group's heads (bf16 operands, fp32 sums), masks rows
+    at or past the length with the finite -0.7·FLT_MAX, keeps m = its max,
+    p = exp(s - m), l = sum p, and acc = bf16(p) @ V; the combine weighs
+    each split by exp(m_s - max m), sums l and acc, and divides (l at
+    least 1e-30).  A row with no live split is 0.
+    """
+    B, _, H, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    out = torch.zeros((B, H, D), dtype=torch.float32)
+    for b in range(B):
+        length = min(int(lengths[b]), S)
+        n_live = -(-length // split) if length > 0 else 0
+        for hk in range(Hkv):
+            qg = q[b, 0, hk * rep:(hk + 1) * rep].float()
+            ms, ls, accs = [], [], []
+            for sp in range(n_live):
+                lo = sp * split
+                hi = min(lo + split, length)
+                k = kc[b, lo:hi, hk].float()
+                v = vc[b, lo:hi, hk].float()
+                s = qg @ k.T * scale
+                s = torch.cat([s, torch.full((rep, lo + split - hi),
+                                             NEG_INF)], 1)
+                m = s.max(-1).values
+                p = torch.exp(s - m[:, None])
+                ls.append(p.sum(-1))
+                ms.append(m)
+                accs.append(p[:, :hi - lo].bfloat16().float() @ v)
+            if not ms:
+                continue
+            m = torch.stack(ms)                          # (n_live, rep)
+            w = torch.exp(m - m.max(0).values)
+            l_tot = (torch.stack(ls) * w).sum(0).clamp_min(1e-30)
+            acc = (torch.stack(accs) * w[..., None]).sum(0)
+            out[b, hk * rep:(hk + 1) * rep] = acc / l_tot[:, None]
+    return out.bfloat16()[:, None]
+
+
+def _decode_inputs(seed, B, S, H, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, 1, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+
+
+DECODE_MIRROR_CASES = [
+    # B, S, H, Hkv, D, lengths
+    (3, 256, 4, 1, 64, (1, 150, 256)),       # ragged, a row of length 1
+    (2, 256, 8, 2, 32, (64, 128)),           # ends on a split boundary
+    (2, 192, 2, 1, 16, (65, 191)),           # one split + 1 row
+    (2, 1024, 4, 1, 256, (520, 1024)),       # gemma3-1b's group
+    (2, 1024, 16, 1, 256, (1, 520)),         # recurrentgemma-9b's group
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens", DECODE_MIRROR_CASES)
+def test_decode_split_mirror_matches_pallas_and_plain(B, S, H, Hkv, D, lens):
+    q, kc, vc = _decode_inputs(B * 7 + S + H, B, S, H, Hkv, D)
+    lengths = np.asarray(lens, np.int32)
+    qt, kt, vt = (torch.from_numpy(x).bfloat16() for x in (q, kc, vc))
+    got = decode_split_mirror(qt, kt, vt, torch.from_numpy(lengths))
+    plain = ref.decode_attention_ref(qt, kt, vt, torch.from_numpy(lengths))
+    np.testing.assert_allclose(_np(got), _np(plain), **BF16_TOL)
+    want = jops.decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kc, jnp.bfloat16),
+        jnp.asarray(vc, jnp.bfloat16), jnp.asarray(lengths),
+        block_kv=min(512, S))
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **BF16_TOL)
+
+
+def test_decode_split_mirror_gives_zero_for_an_empty_row():
+    """A row of length 0 is 0, as the TPU kernel gives it (the plain
+    versions of both packages average V there, so the Pallas kernel is
+    the reference)."""
+    B, S, H, Hkv, D = 2, 128, 4, 1, 32
+    q, kc, vc = _decode_inputs(3, B, S, H, Hkv, D)
+    lengths = np.asarray([0, 37], np.int32)
+    got = decode_split_mirror(*(torch.from_numpy(x).bfloat16()
+                                for x in (q, kc, vc)),
+                              torch.from_numpy(lengths))
+    want = jops.decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kc, jnp.bfloat16),
+        jnp.asarray(vc, jnp.bfloat16), jnp.asarray(lengths), block_kv=64)
+    assert not np.asarray(want, np.float32)[0].any()
+    assert not _np(got)[0].any()
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **BF16_TOL)
+
+
+# --------------------------------------------------------------------- #
+# RG-LRU: a mirror of the chunked scan
+# --------------------------------------------------------------------- #
+def rglru_chunked_mirror(a, b, chunk=rglru_mod.CHUNK_STEPS, chunks=8):
+    """The chunked kernel's arithmetic on fp32 CPU tensors.
+
+    Groups of ``chunks`` chunks of ``chunk`` steps, padded past S with
+    a = 1, b = 0.  Pass 1 scans each chunk from 0 for its end state e and
+    keeps its product A; the carry folds (A, e) over the group's chunks
+    in order from the state entering the group, giving each chunk's
+    entering state; pass 2 rescans each chunk from it.  Every update is a
+    multiply, then an add, each rounded to fp32.
+    """
+    B, S, W = a.shape
+    G = chunk * chunks
+    pad = -S % G
+    a = torch.cat([a.float(), torch.ones((B, pad, W))], 1)
+    b = torch.cat([b.float(), torch.zeros((B, pad, W))], 1)
+    out = torch.empty_like(a)
+    carry = torch.zeros((B, W))
+    for g0 in range(0, S + pad, G):
+        ag = a[:, g0:g0 + G].reshape(B, chunks, chunk, W)
+        bg = b[:, g0:g0 + G].reshape(B, chunks, chunk, W)
+        e = torch.zeros((B, chunks, W))
+        prod = torch.ones((B, chunks, W))
+        for u in range(chunk):                              # pass 1
+            e = ag[:, :, u] * e + bg[:, :, u]
+            prod = prod * ag[:, :, u]
+        h_in, h = [], carry
+        for j in range(chunks):                             # carry
+            h_in.append(h)
+            h = prod[:, j] * h + e[:, j]
+        carry = h
+        h = torch.stack(h_in, 1)
+        og = out[:, g0:g0 + G].view(B, chunks, chunk, W)
+        for u in range(chunk):                              # pass 2
+            h = ag[:, :, u] * h + bg[:, :, u]
+            og[:, :, u] = h
+    return out[:, :S]
+
+
+def _gate(rng, shape):
+    """a in (0, 1), mostly 0.8-1 with a tail toward 0: Griffin's gates
+    start with a^c in [0.9, 0.999], so a chunk's product stays large and
+    the carry across chunks and groups matters."""
+    return (rng.uniform(0.0, 1.0, shape) ** 0.05).astype(np.float32)
+
+
+RGLRU_MIRROR_CASES = [
+    (1, 1, 16), (2, 7, 48), (1, 64, 16), (2, 64, 48), (2, 97, 48),
+    (1, 97, 4096), (2, 512, 16), (1, 512, 4096),
+]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_MIRROR_CASES)
+def test_rglru_chunked_mirror_matches_pallas_and_plain(B, S, W):
+    rng = np.random.default_rng(B * 100 + S + W)
+    a = _gate(rng, (B, S, W))
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    got = rglru_chunked_mirror(torch.from_numpy(a), torch.from_numpy(b))
+    plain, final = ref.rglru_scan_ref(torch.from_numpy(a),
+                                      torch.from_numpy(b))
+    np.testing.assert_allclose(_np(got), _np(plain), **FP32_TOL)
+    np.testing.assert_allclose(_np(got[:, -1]), _np(final), **FP32_TOL)
+    want = jops.rglru_scan(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **FP32_TOL)
+
+
+def test_rglru_chunked_mirror_is_sequential_within_one_chunk():
+    """With S inside the first chunk the mirror is the sequential
+    recurrence bit for bit: only the entering states are reassociated."""
+    rng = np.random.default_rng(5)
+    S = rglru_mod.CHUNK_STEPS
+    a = torch.from_numpy(_gate(rng, (2, S, 48)))
+    b = torch.from_numpy(rng.standard_normal((2, S, 48)).astype(np.float32))
+    assert torch.equal(rglru_chunked_mirror(a, b),
+                       ref.rglru_scan_ref(a, b)[0])
+
+
+def test_ssd_plain_version_evaluates_fp64_inputs_in_fp64():
+    """``chip_smoke.py`` holds the fp32 SSD kernel against the sequential
+    recurrence in fp64; fp32 and bf16 inputs still compute in fp32."""
+    rng = np.random.default_rng(1)
+    B, S, H, P, G, N = 1, 32, 2, 8, 1, 16
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((B, S, H))))
+    a_log = torch.log(torch.linspace(1.0, 4.0, H, dtype=torch.float64))
+    B_in = torch.from_numpy(rng.standard_normal((B, S, G, N)))
+    C_in = torch.from_numpy(rng.standard_normal((B, S, G, N)))
+    y64, h64 = ref.ssd_scan_ref(x, dt, a_log, B_in, C_in)
+    assert y64.dtype == h64.dtype == torch.float64
+    y32, h32 = ref.ssd_scan_ref(x.float(), dt.float(), a_log.float(),
+                                B_in.float(), C_in.float())
+    assert y32.dtype == h32.dtype == torch.float32
+    np.testing.assert_allclose(_np(y32), _np(y64), **FP32_TOL)
+    np.testing.assert_allclose(_np(h32), _np(h64), **FP32_TOL)
+    yb, hb = ref.ssd_scan_ref(x.bfloat16(), dt.float(), a_log.float(),
+                              B_in.bfloat16(), C_in.bfloat16())
+    assert yb.dtype == torch.bfloat16 and hb.dtype == torch.float32

@@ -331,6 +331,17 @@ RGLRU_GRID = [
 ]
 
 
+def _ssd_want(*args):
+    """What the SSD kernel is held against: for fp32 inputs the recurrence
+    evaluated in fp64 (in fp32 it strays up to ~1e-4 from fp64 at the
+    mamba2-130m shape, past the fp32 tolerance, as ``chip_smoke.py``
+    reports), for bf16 inputs the plain version as it is."""
+    if args[0].dtype == torch.float32:
+        y, h = ref.ssd_scan_ref(*(t.double() for t in args))
+        return y.float(), h.float()
+    return ref.ssd_scan_ref(*args)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_GRID)
 def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, dtype):
@@ -341,7 +352,7 @@ def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, dtype):
     dt = torch.nn.functional.softplus(_t(dt, "float32")).to(cuda)
     a_log = torch.log(torch.linspace(1.0, 4.0, H)).to(cuda)
     y, h = ops.ssd_scan(x, dt, a_log, B_in, C_in, chunk=chunk)
-    want_y, want_h = ref.ssd_scan_ref(x, dt, a_log, B_in, C_in)
+    want_y, want_h = _ssd_want(x, dt, a_log, B_in, C_in)
     _close(y.cpu(), want_y.cpu().float().numpy(), dtype)
     _close(h.cpu(), want_h.cpu().numpy(), dtype)
 
@@ -360,7 +371,7 @@ def test_cuda_rglru_scan_matches_plain(cuda, B, S, W, dtype):
 
 
 # --------------------------------------------------------------------- #
-# on a card: both routes of flash_attention and ssd_scan, forced
+# on a card: both routes of each kernel that has two, forced
 # --------------------------------------------------------------------- #
 def _routes(rule):
     """The routes that take a case: the CUDA cores take every shape the
@@ -425,7 +436,7 @@ def test_cuda_ssd_scan_routes_match_plain(cuda, B, S, H, P, G, N, chunk,
     dt = torch.nn.functional.softplus(_t(dt, "float32")).to(cuda)
     a_log = torch.log(torch.linspace(1.0, 4.0, H)).to(cuda)
     args = (x, dt, a_log, B_in, C_in)
-    want_y, want_h = ref.ssd_scan_ref(*args)
+    want_y, want_h = _ssd_want(*args)
     rule = ssd_mod.route(dtype, P, N, chunk)
     for r in _routes(rule):
         y, h = ssd_mod.launch(*args, chunk=chunk, force=r)
@@ -434,3 +445,61 @@ def test_cuda_ssd_scan_routes_match_plain(cuda, B, S, H, P, G, N, chunk,
         if r == rule:
             y0, h0 = ssd_mod.launch(*args, chunk=chunk)
             assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+DECODE_EDGES = (1, 64, 65)          # one row, one split, one split + 1
+DECODE_ROUTE_GRID = [(*case, None) for case in DECODE_GRID] + [
+    # B, S, H, Hkv, D, lengths (None: random in 1..S)
+    *[(4, 256, H, 1, 64, DECODE_EDGES + (256,)) for H in (1, 2, 4, 8, 16)],
+    (4, 1024, 16, 1, 256, DECODE_EDGES + (1024,)),
+    (4, 128, 8, 2, 16, DECODE_EDGES + (128,)),
+    (4, 1024, 4, 1, 256, (520,) * 4),     # gemma3-1b global cache
+    (4, 512, 4, 1, 256, (512,) * 4),      # gemma3-1b ring cache, full
+    (1, 1024, 16, 1, 256, (520,)),        # recurrentgemma-9b
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens", DECODE_ROUTE_GRID)
+def test_cuda_decode_attention_routes_match_plain(cuda, B, S, H, Hkv, D,
+                                                  lens, dtype):
+    from repro_torch.kernels import decode_attention as decode_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, kc, vc = (_t(x, dtype).to(cuda) for x in _inputs(
+        9, (B, 1, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    if lens is None:
+        lens = np.random.default_rng(S).integers(1, S + 1, (B,))
+    lengths = torch.tensor(np.asarray(lens, np.int32)).to(cuda)
+    want = ref.decode_attention_ref(q, kc, vc, lengths).cpu().float()
+    got = ops.decode_attention(q, kc, vc, lengths, block_kv=32)
+    _close(got.cpu(), want.numpy(), dtype)
+    rule = decode_mod.route(dtype, D, H // Hkv)
+    for r in _routes(rule):
+        out = decode_mod.launch(q, kc, vc, lengths, force=r)
+        _close(out.cpu(), want.numpy(), dtype)
+        if r == rule:
+            assert torch.equal(out, decode_mod.launch(q, kc, vc, lengths))
+
+
+RGLRU_EDGE_GRID = RGLRU_GRID + [
+    (1, 1, 48),                     # inside one chunk
+    (2, 7, 100),                    # and a partial 32-column tile
+    (2, 97, 48),                    # a partial last chunk
+    (1, 97, 100),
+    (2, 520, 100),                  # a partial last group of chunks
+    (1, 512, 4096),                 # recurrentgemma-9b serving, B = 1
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W", RGLRU_EDGE_GRID)
+def test_cuda_rglru_scan_chunk_edges_match_plain(cuda, B, S, W, dtype):
+    a, b = _inputs(10, (B, S, W), (B, S, W))
+    # mostly 0.8-1, as Griffin's gates make a: carries across chunks matter
+    a = torch.sigmoid(_t(a, "float32") + 3.0).to(dtype).to(cuda)
+    b = _t(b, dtype).to(cuda)
+    want, final = ref.rglru_scan_ref(a, b)
+    h = ops.rglru_scan(a, b)
+    assert h.dtype == torch.float32
+    _close(h.cpu(), want.cpu().numpy(), dtype)
+    _close(h[:, -1].cpu(), final.cpu().numpy(), dtype)
