@@ -3,13 +3,16 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device, ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``) and no
-network.  Three serving paths, each a registered configuration at full
-width with seeded random weights, and the kernels each one runs:
+network.  Three LM serving paths, each a registered configuration at
+full width with seeded random weights, the micro models of the real
+plane, and the kernels each one runs:
 
 * gemma3-1b — ``flash_attention`` (prefill), ``decode_attention`` (decode);
 * mamba2-130m — ``ssd_scan`` (prefill);
 * recurrentgemma-9b — ``rglru_scan`` (prefill) and, in its local
-  attention layers, ``flash_attention`` and ``decode_attention``.
+  attention layers, ``flash_attention`` and ``decode_attention``;
+* attn-tiny — ``flash_attention`` on its CUDA-core route (fp32, head
+  dim 16); mlp-tiny and mlp run no kernel of the port.
 
 Phases, each printing JSON lines; any failure raises and the script exits
 non-zero:
@@ -19,7 +22,10 @@ non-zero:
 2. **kernels** — each kernel against its plain PyTorch version on the
    card, fp32 and bf16: the shape grids of ``tests/test_kernels.py``,
    head dim 8, GQA groups 1-16, windows, partial tiles, a single chunk,
-   and the serving shapes of the three paths at B = 1 and 4 (decode
+   attn-tiny's shapes (fp32, 2 heads of 16, S = 16, 8 and 4 at B = 1,
+  16 and 256; the wrapper pads 8 and 4 to 16, the forced route takes
+  them as they are), and the serving shapes of the three LM paths at
+  B = 1 and 4 (decode
    also at B = 8 and at the serve phase's cache lengths; decode lengths
    of 1, one split, one split + 1 and S; RG-LRU partial chunks and
    column tiles).  ``flash_attention``, ``decode_attention`` and
@@ -60,6 +66,20 @@ non-zero:
    chunked RG-LRU scan), no other kernel may launch, and no wrapper may
    take its CPU route.  The launch counts (by route) are reset just
    before each path and read just after it.
+6. **micro** — per micro model: the card's step against the CPU plain
+   step on the same weights (fp32, 2e-5), a trace of one runner step at
+   b = 1 and 256, then the launcher's ``run_real_scenario`` on
+   steady-poisson (4 s, 4 units, max batch 256, capped at 300 req/s)
+   under both policies and both dispatches.  Every request must
+   complete; the counts, reset just before the scenario and read just
+   after, must show attn-tiny's flash calls on the CUDA-core route only,
+   no kernel for the MLPs, and no CPU-route call.
+7. **launcher** — ``repro_torch.launch.bench_serving`` on the fast
+   simulated plane (step-up, 20 s), twice: the reports must be identical.
+8. **serve_online** — ``repro_torch.launch.serve`` with
+   ``examples/serve_online.py``'s arguments over 8 s (rate step at 4 s)
+   on the card: every request must complete; the reduced model runs no
+   kernel of the port, as in the reference.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
@@ -92,11 +112,32 @@ PATHS = {"gemma3-1b": {"flash_attention": "tensor_core",
                                "flash_attention": "tensor_core",
                                "decode_attention": "tensor_core"}}
 ROUTES = ("cuda_core", "tensor_core", "chunked")
+# the host calls that put a kernel on the device, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
 # path -> (prompt tokens, cache slots) of the model check
 MODEL_CHECK = {"gemma3-1b": (1024, 2048), "mamba2-130m": (1000, 2048),
                "recurrentgemma-9b": (2100, 4096)}
+# micro models of the real plane: model -> {kernel: the route its serving
+# run must launch}; any other launch fails the path.  attn-tiny runs the
+# fp32 flash kernel (2 heads of head dim 16), the MLPs no kernel
+MICRO_PATHS = {"mlp-tiny": {}, "mlp": {},
+               "attn-tiny": {"flash_attention": "cuda_core"}}
+ATTN_TINY_HD = (2, 16)            # attn-tiny's (heads, head dim)
+MICRO_MLP = {"mlp-tiny": (32, 2), "mlp": (128, 4)}   # width, depth
+MICRO_SECONDS, MICRO_UNITS, MICRO_BATCHES = 4.0, 4, (1, 256)
+# serve_online: examples/serve_online.py's arguments, a shorter run
+SERVE_ONLINE_ARGS = ["--arch", "gemma3-1b", "--duration", "8",
+                     "--rate-step", "4", "--initial-batch", "8",
+                     "--max-batch", "32"]
+# (row, source, the TPU kernel it replaces): one row per kernel, and the
+# flash kernel's CUDA-core route (flash_fwd_kernel, attn-tiny's path) in
+# a row of its own; each row's launches are those of its headline's route
 KERNEL_ROWS = (
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:89"),
+    ("flash_attention/cuda_core",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:89"),
     ("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
      "src/repro/kernels/decode_attention.py:125"),
@@ -154,34 +195,21 @@ def main(argv=None) -> int:
     launches = {n: {} for n in KERNEL_STATS}
     by_path = {n: {} for n in KERNEL_STATS}
     for path, needed in PATHS.items():
-        for stats in KERNEL_STATS.values():
-            stats.reset()
+        _reset_counts()
         serve_rep = phase_serve(torch, path)
-        counts = {n: dict(s.launches_by_route)
-                  for n, s in KERNEL_STATS.items()}
-        cpu_calls = {n: s.cpu_calls for n, s in KERNEL_STATS.items()}
+        counts, cpu_calls = _counts()
         _free(torch)                  # the engine went with phase_serve
         serve_rep["launches_by_route"] = counts
         serve_rep["cpu_calls"] = cpu_calls
         emit({"phase": "serve", **serve_rep})
-        for name, by_route in counts.items():
-            want = needed.get(name)
-            if want is None and by_route:
-                raise AssertionError(f"{path}: {name} launched, but the "
-                                     f"path has no call of it: {by_route}")
-            if want is not None and (by_route.get(want, 0) <= 0
-                                     or set(by_route) != {want}):
-                raise AssertionError(f"{path}: every {name} call must take "
-                                     f"the {want} route, got {by_route}")
-        for name, n in cpu_calls.items():
-            if n != 0:
-                raise AssertionError(f"{path}: {name} took its CPU route "
-                                     "on the card")
-        for name, by_route in counts.items():
-            for r, n in by_route.items():
-                launches[name][r] = launches[name].get(r, 0) + n
-            if by_route:
-                by_path[name][path] = by_route
+        _check_launches(path, counts, cpu_calls, needed)
+        _tally(counts, path, launches, by_path)
+    for name in MICRO_PATHS:
+        micro_rep = phase_micro(torch, name)
+        _tally(micro_rep["launches_by_route"], name, launches, by_path)
+        emit({"phase": "micro", **micro_rep})
+    emit({"phase": "launcher", **phase_launcher()})
+    emit({"phase": "serve_online", **phase_serve_online(torch)})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -193,11 +221,12 @@ def main(argv=None) -> int:
     rows = []
     for name, source, replaces in KERNEL_ROWS:
         h = headline[name]
+        kernel = name.split("/")[0]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": sum(launches[name].values()),
-                     "launches_by_route": launches[name],
-                     "launches_by_path": by_path[name],
+                     "launches": launches[kernel].get(h["route"], 0),
+                     "launches_by_route": launches[kernel],
+                     "launches_by_path": by_path[kernel],
                      "kernel_route": h["route"],
                      "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                      "host_ms": h["host_ms"],
@@ -320,6 +349,47 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def _tally(counts, path, launches, by_path) -> None:
+    """Add one path's launch counts (kernel -> route -> n) to the run's."""
+    for name, by_route in counts.items():
+        for r, n in by_route.items():
+            launches[name][r] = launches[name].get(r, 0) + n
+        if by_route:
+            by_path[name][path] = by_route
+
+
+def _check_launches(path, counts, cpu_calls, needed) -> None:
+    """Every kernel of the path launched, each only on the route ``needed``
+    names; no other kernel launched; no wrapper took its CPU route."""
+    for name, by_route in counts.items():
+        want = needed.get(name)
+        if want is None and by_route:
+            raise AssertionError(f"{path}: {name} launched, but the "
+                                 f"path has no call of it: {by_route}")
+        if want is not None and (by_route.get(want, 0) <= 0
+                                 or set(by_route) != {want}):
+            raise AssertionError(f"{path}: every {name} call must take "
+                                 f"the {want} route, got {by_route}")
+    for name, n in cpu_calls.items():
+        if n != 0:
+            raise AssertionError(f"{path}: {name} took its CPU route "
+                                 "on the card")
+
+
+def _counts():
+    """The launch counts by route and the CPU-route calls of every kernel
+    wrapper since the last reset."""
+    from repro_torch.kernels import KERNEL_STATS
+    return ({n: dict(s.launches_by_route) for n, s in KERNEL_STATS.items()},
+            {n: s.cpu_calls for n, s in KERNEL_STATS.items()})
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import KERNEL_STATS
+    for stats in KERNEL_STATS.values():
+        stats.reset()
+
+
 # --------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------- #
@@ -377,6 +447,11 @@ def phase_kernels(torch):
                 for window in (0, 512):
                     flash.append((dt, B, S, 4, 1, 256, window, 512))
             flash.append((dt, B, 512, 16, 1, 256, 2048, 512))
+    # attn-tiny (the micro path): fp32, 2 heads of 16, its rungs' S = 16,
+    # 8 and 4 (the wrapper pads 8 and 4 to 16), at B = 1, 16 and 256
+    for B in (1, 16, 256):
+        for S in (16, 8, 4):
+            flash.append(("float32", B, S, 2, 2, 16, 0, 512))
     timings = {"flash_attention": [], "decode_attention": [],
                "ssd_scan": [], "rglru_scan": []}
     for dt, B, S, H, Hkv, D, window, blk in flash:
@@ -403,7 +478,7 @@ def phase_kernels(torch):
         same_route("flash_attention", shape, dt, rule,
                    [flash_mod.launch(q, k, v, causal=True, window=window)],
                    [forced[rule]])
-        if D == 256:
+        if D == 256 or (H, D) == ATTN_TINY_HD:
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(v, H // Hkv, 2).transpose(1, 2)
@@ -656,6 +731,12 @@ def phase_kernels(torch):
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
             and t["shape"]["S"] == 512 and t["shape"]["H"] == 4
             and t["shape"]["window"] == 0),
+        # attn-tiny's largest serving cell: the CUDA-core route's path
+        "flash_attention/cuda_core": next(
+            t for t in timings["flash_attention"]
+            if t["dtype"] == "float32" and t["shape"]["B"] == 256
+            and t["shape"]["S"] == 16
+            and (t["shape"]["H"], t["shape"]["D"]) == ATTN_TINY_HD),
         "decode_attention": next(
             t for t in timings["decode_attention"]
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
@@ -781,9 +862,8 @@ def _trace_report(prof, wall_ms, enqueue_ms, steps):
         else:
             host_ops[e.name[:80]] += e.self_cpu_time_total / 1e3
     busy_ms = sum(by_name.values())
-    launches = sum(1 for e in prof.events()
-                   if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                 "cuLaunchKernelEx"))
+    # cuBLAS launches its GEMMs through cudaLaunchKernelExC
+    launches = sum(1 for e in prof.events() if e.name in LAUNCH_CALLS)
     return {"wall_ms_per_step": wall_ms / steps,
             "host_enqueue_ms_per_step": enqueue_ms / steps,
             "device_busy_ms_per_step": busy_ms / steps,
@@ -929,6 +1009,188 @@ def phase_serve(torch, name: str):
             emit({"phase": "serve", **rep})
             raise AssertionError(f"{name}, {policy}: not every prompt "
                                  "completed")
+    return rep
+
+
+# --------------------------------------------------------------------- #
+# phase 6: the micro models through the launcher's real path
+# --------------------------------------------------------------------- #
+def phase_micro(torch, name: str):
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.bench_serving import (DISPATCHES, POLICIES,
+                                                  policy_key,
+                                                  run_real_scenario)
+    from repro_torch.models import micro
+    from repro_torch.serving.scenarios import get_scenario
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    # the card's step against the CPU plain step, same weights and inputs
+    b = max(MICRO_BATCHES)
+    if name == "attn-tiny":
+        cpu_in = [torch.randn((b, 16, *ATTN_TINY_HD), generator=gen)
+                  for _ in range(3)]
+        want = micro.attn_step(*cpu_in)
+        card_in = [t.to(dev) for t in cpu_in]
+        got = micro.attn_step(*card_in)
+    else:
+        dim, depth = MICRO_MLP[name]
+        params = micro.init_mlp_params(dim, depth, 0, "cpu")
+        x = torch.randn((b, dim), generator=gen)
+        want = micro.mlp_step(x, params)
+        got = micro.mlp_step(x.to(dev), [(w.to(dev), c.to(dev))
+                                         for w, c in params])
+    torch.cuda.synchronize()
+    err, ok = _compare(torch, got.cpu(), want, "float32")
+    rep = {"model": name, "step_check": {
+        "batch": b, "max_abs_err": err, "ok": ok,
+        "tolerance": dict(zip(("atol", "rtol"), TOL["float32"]))}}
+    if not ok:
+        emit({"phase": "micro", **rep})
+        raise AssertionError(f"{name}: the card's step differs from the "
+                             f"CPU's: {err}")
+
+    # one step through the runner, traced: wall per step (the runner
+    # waits for its stream), the host's time to enqueue the bare step,
+    # device busy time, idle share and launches, at b = 1 and 256
+    make_runner = micro.make_micro_runner(name)
+    steps = 50
+    rep["trace"] = {}
+    for bt in MICRO_BATCHES:
+        if name == "attn-tiny":
+            xs = [torch.randn((bt, 16, *ATTN_TINY_HD), generator=gen).to(dev)
+                  for _ in range(3)]
+
+            def step():
+                micro.attn_step(*xs)
+        else:
+            w_dev = [(w.to(dev), c.to(dev)) for w, c in params]
+            x_dev = torch.ones((bt, MICRO_MLP[name][0]), device=dev)
+
+            def step():
+                micro.mlp_step(x_dev, w_dev)
+        run = make_runner(MICRO_UNITS, bt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+        rep["trace"][str(bt)] = _trace_report(prof, wall, enqueue, steps)
+        if rep["trace"][str(bt)]["device_busy_ms_per_step"] <= 0:
+            raise AssertionError(f"{name}: the trace saw no device time")
+    del make_runner, run
+
+    # the main path: the launcher's real micro scenario, both policies x
+    # both dispatches, counts reset just before and read just after
+    _reset_counts()
+    t0 = time.perf_counter()
+    sc = run_real_scenario(
+        get_scenario("steady-poisson"), real_model=name, units=MICRO_UNITS,
+        duration=MICRO_SECONDS, seed=0, initial_batch=8, max_batch=256,
+        slo_factor=4.0, reconfigure_timeout=1.0, dispatches=DISPATCHES,
+        rate_cap=300.0, device="cuda")
+    counts, cpu_calls = _counts()
+    rep["serve_s"] = time.perf_counter() - t0
+    rep["launches_by_route"] = counts
+    rep["cpu_calls"] = cpu_calls
+    profile_ms = sc["measured_profile_ms"]
+    rep.update({"offered": sc["offered"], "rate_capped": sc["rate_capped"],
+                "duration_s": MICRO_SECONDS, "units": MICRO_UNITS,
+                "max_batch": 256, "slo_deadline_ms": sc["slo_deadline_ms"],
+                "measured_profile_ms": {
+                    cell: profile_ms[cell] for cell in
+                    ("1,1", "4,1", "1,16", "4,16", "1,256", "4,256")},
+                "profile_cells": len(profile_ms), "policies": {}})
+    failed = []
+    for policy in POLICIES:
+        for dispatch in DISPATCHES:
+            key = policy_key(policy, dispatch)
+            r = sc[key]
+            rep["policies"][key] = {
+                "completed": r["completed"], "incomplete": r["incomplete"],
+                "latency_ms": {q: r["latency_ms"][q]
+                               for q in ("p50", "p95", "p99")},
+                "reconfigurations": r["reconfigurations"],
+                "final_config": r["final_config"],
+                "calibration_ratio": r["calibration"]["global_ratio"],
+                "optimizer_refreshes":
+                    r["calibration"]["optimizer_refreshes"]}
+            if r["completed"] != sc["offered"] or r["incomplete"]:
+                failed.append(key)
+    if failed:
+        emit({"phase": "micro", **rep})
+        raise AssertionError(f"{name}: not every request completed under "
+                             f"{failed}")
+    _check_launches(name, counts, cpu_calls, MICRO_PATHS[name])
+    return rep
+
+
+# --------------------------------------------------------------------- #
+# phase 7: the launcher's simulated plane runs here, deterministically
+# --------------------------------------------------------------------- #
+def phase_launcher():
+    import contextlib
+    import io
+    from repro_torch.launch import bench_serving
+    argv = ["--execution", "fast", "--scenario", "step-up",
+            "--duration", "20"]
+    reports = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            if bench_serving.main(argv) != 0:
+                raise AssertionError("launcher: bench_serving failed")
+        reports.append(out.getvalue())
+    if reports[0] != reports[1]:
+        raise AssertionError("launcher: two runs gave different reports")
+    sc = json.loads(reports[0])["scenarios"]["step-up"]
+    return {"argv": argv, "identical": True, "bytes": len(reports[0]),
+            "seconds": time.perf_counter() - t0, "offered": sc["offered"],
+            "p95_ms": {k: sc[k]["latency_ms"]["p95"]
+                       for k in sc["policies"]}}
+
+
+# --------------------------------------------------------------------- #
+# phase 8: the serving launcher (examples/serve_online.py) on the card
+# --------------------------------------------------------------------- #
+def phase_serve_online(torch):
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(SERVE_ONLINE_ARGS)
+    seconds = time.perf_counter() - t0
+    counts, cpu_calls = _counts()
+    lines = out.getvalue().strip().splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    m = re.match(r"\[serve\] arch=\S+ requests=(\d+) completed=(\d+)",
+                 lines[0] if lines else "")
+    rep = {"argv": SERVE_ONLINE_ARGS, "seconds": seconds,
+           "requests": int(m.group(1)) if m else None,
+           "completed": int(m.group(2)) if m else None,
+           "latency": next((ln for ln in lines if "latency" in ln), None),
+           "reconfigurations": sum("reconfig" in ln for ln in lines) - 1,
+           "launches_by_route": counts, "cpu_calls": cpu_calls}
+    if rc != 0 or m is None or rep["requests"] != rep["completed"]:
+        emit({"phase": "serve_online", **rep})
+        raise AssertionError("serve_online: not every request completed")
+    # reduced configs keep use_pallas_kernels off, as in the reference
+    _check_launches("serve_online", counts, cpu_calls, {})
     return rep
 
 

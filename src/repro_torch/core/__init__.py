@@ -7,6 +7,8 @@
 * :mod:`repro_torch.core.roofline` — roofline terms behind the analytic profile.
 * :mod:`repro_torch.core.interference` — multi-instance contention models.
 * :mod:`repro_torch.core.multimodel` — multi-model unit allocation.
+* :mod:`repro_torch.core.paper_profiles` — the paper's fitted latency models
+  behind the simulated planes.
 
 The modules are pure Python and numpy; ``tests/test_torch_isolation.py``
 holds each one byte-identical to its reference file.

@@ -239,13 +239,51 @@ def test_run_lm_policy_report_keys_match_reference(engine):
                for n in ("flash_attention", "decode_attention"))
 
 
-def test_launcher_rejects_unported_modes():
-    for argv in (["--execution", "sim"],
-                 ["--execution", "real", "--real-model", "mlp-tiny"],
-                 ["--execution", "real", "--real-model", "lm-tiny",
-                  "--nodes", "2"]):
-        with pytest.raises(SystemExit):
-            tbench.main(argv)
+REJECTED_ARGVS = [
+    ["--duration", "0"],
+    ["--units", "0"],
+    ["--max-batch", "0"],
+    ["--slo-ms", "-5"],
+    ["--nodes", "0"],
+    ["--nodes", "2", "--models", "resnet50,bert"],
+    ["--nodes", "2", "--execution", "real"],
+    ["--fidelity-ladder"],
+    ["--execution", "real", "--models", "resnet50,bert"],
+    ["--execution", "real", "--interference"],
+    ["--execution", "real", "--model", "resnet50"],
+    ["--execution", "real", "--real-model", "no-such-model"],
+    ["--execution", "real", "--real-model", "lm-tiny", "--nodes", "2"],
+    ["--execution", "real", "--real-model", "lm-tiny", "--units", "1"],
+    ["--execution", "real", "--real-model", "lm-tiny",
+     "--lm-decode-steps", "0"],
+    ["--models", "resnet50"],
+    ["--models", "resnet50,no-such-model"],
+    ["--models", "resnet50,bert", "--units", "1"],
+    ["--models", "resnet50,bert", "--trace", "t.json"],
+    ["--models", "resnet50,bert", "--scenario", "diurnal"],
+    ["--scenario", "no-such-scenario"],
+    ["--trace", "no-such-trace.json"],
+    ["--model", "no-such-model"],
+    ["--execution", "tpu"],
+]
+
+
+@pytest.mark.parametrize("argv", REJECTED_ARGVS, ids=" ".join)
+def test_launcher_rejects_unported_modes(argv, capsys):
+    """The port's launcher holds the reference's rejection rules: each
+    argv the reference refuses (``tests/test_bench_serving.py``) exits
+    with argparse's code 2 and the reference's error line, and no mode
+    the reference accepts is refused as not ported."""
+    pytest.importorskip("jax")
+    from repro.launch import bench_serving as jbench
+    errors = []
+    for main in (tbench.main, jbench.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0] == errors[1]
+    assert "not yet ported" not in errors[0]
 
 
 def test_launcher_runs_lm_tiny_on_cpu(tmp_path, capsys):
