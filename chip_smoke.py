@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device, ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``) and no
-network.  Three LM serving paths, each a registered configuration at
+network.  Four LM serving paths, each a registered configuration at
 full width with seeded random weights, the micro models of the real
 plane, and the kernels each one runs:
 
@@ -11,6 +11,12 @@ plane, and the kernels each one runs:
 * mamba2-130m — ``ssd_scan`` (prefill);
 * recurrentgemma-9b — ``rglru_scan`` (prefill) and, in its local
   attention layers, ``flash_attention`` and ``decode_attention``;
+* deepseek-v2-236b — no kernel: multi-head latent attention (blocked
+  prefill attention, absorbed latent decode) and the capacity-tile MoE
+  are plain PyTorch, as the reference has no Pallas kernel there.  Depth
+  is cut to the dense MLA prefix layer and 2 of 59 MLA_MOE repeats
+  (:data:`CUT`): ~9.3B parameters, 18.7 GB in bf16 and 37 GB in fp32,
+  where 59 repeats would be ~470 GB;
 * attn-tiny — ``flash_attention`` on its CUDA-core route (fp32, head
   dim 16); mlp-tiny and mlp run no kernel of the port.
 
@@ -52,7 +58,21 @@ non-zero:
    into a 4096-slot cache.  fp32 logits must agree to 1e-3 of their
    largest magnitude (summation order only); in bf16 the kernel path
    must stay within twice the plain bf16 path's distance from the fp32
-   logits (floor 2e-2).
+   logits (floor 2e-2).  deepseek-v2-236b has no kernel, so its check
+   holds a 512-token prefill (1024 slots) and 8 absorbed decode steps
+   against a full-sequence ``forward`` over the same tokens (expanded
+   attention): fp32 within 1e-3, bf16 within twice the bf16 forward's
+   distance from the fp32 forward (floor 2e-2).  Its MoE is made
+   dropless for the check (capacity factor :data:`DROPLESS_CF` ≥ E /
+   top_k): a forward over S + 8 tokens and a prefill over S would
+   otherwise drop different assignments.
+   **moe** — deepseek-v2-236b's MoE at full width and the published
+   capacity factor 1.25: ``moe_dispatch_indices`` on the card equals
+   its CPU result bit for bit for the same router output (T = 2048, the
+   serve prefill; the same tokens pushed toward one expert, which must
+   drop; T = 4), and prints the drops; two ``apply_moe`` calls on one
+   input are bit-identical (the combine uses no atomics), and each is
+   timed at the serve prefill (4 × 512 tokens) and a B = 4 decode step.
 4. **trace** — per path, where a full-width bf16 step spends its time:
    one 512-token prefill and 4 decode steps at batch 1, traced with
    ``torch.profiler``: wall time, host time to enqueue, device busy time,
@@ -110,14 +130,24 @@ PATHS = {"gemma3-1b": {"flash_attention": "tensor_core",
          "mamba2-130m": {"ssd_scan": "tensor_core"},
          "recurrentgemma-9b": {"rglru_scan": "chunked",
                                "flash_attention": "tensor_core",
-                               "decode_attention": "tensor_core"}}
+                               "decode_attention": "tensor_core"},
+         "deepseek-v2-236b": {}}
+# path -> overrides that cut a configuration to one card: deepseek-v2-236b
+# keeps its full width and its dense MLA prefix layer, and 2 of its 59
+# MLA_MOE repeats (each ~3.97B parameters, 7.9 GB in bf16): 59 repeats
+# are ~470 GB in bf16, and the fp32 model check needs ~37 GB for 2
+CUT = {"deepseek-v2-236b": {"n_repeats": 2}}
+# the model check's MoE capacity factor: >= n_experts / top_k (160 / 6),
+# so no assignment is dropped and prefill + decode equals the forward
+DROPLESS_CF = 32.0
 ROUTES = ("cuda_core", "tensor_core", "chunked")
 # the host calls that put a kernel on the device, as the profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 # path -> (prompt tokens, cache slots) of the model check
 MODEL_CHECK = {"gemma3-1b": (1024, 2048), "mamba2-130m": (1000, 2048),
-               "recurrentgemma-9b": (2100, 4096)}
+               "recurrentgemma-9b": (2100, 4096),
+               "deepseek-v2-236b": (512, 1024)}
 # micro models of the real plane: model -> {kernel: the route its serving
 # run must launch}; any other launch fails the path.  attn-tiny runs the
 # fp32 flash kernel (2 heads of head dim 16), the MLPs no kernel
@@ -189,6 +219,7 @@ def main(argv=None) -> int:
         return 0
     for name in PATHS:
         emit({"phase": "model", **phase_model(torch, name)})
+    emit({"phase": "moe", **phase_moe(torch)})
     for name in PATHS:
         emit({"phase": "trace", **phase_trace(torch, name)})
 
@@ -342,6 +373,12 @@ def _bound(bytes_moved: float, flops: float, dtype_name: str):
 def _visible_pairs(S: int, window: int) -> int:
     """Causal (optionally windowed) query-key pairs of one head."""
     return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def _config(name: str):
+    """The registered configuration of a path, cut to one card (CUT)."""
+    from repro_torch.configs import get_config
+    return get_config(name).with_overrides(**CUT.get(name, {}))
 
 
 def _free(torch) -> None:
@@ -772,10 +809,11 @@ def phase_kernels(torch):
 # phase 3: full-width models, kernels vs the plain path
 # --------------------------------------------------------------------- #
 def phase_model(torch, name: str):
-    from repro_torch.configs import get_config
+    if not PATHS[name]:
+        return _model_check_incremental(torch, name)
     from repro_torch.models.lm import decode_step, init_params, prefill
     dev = torch.device("cuda")
-    base = get_config(name)
+    base = _config(name)
     S, max_len = MODEL_CHECK[name]
     n_dec = 8
     gen = torch.Generator().manual_seed(1)
@@ -844,6 +882,175 @@ def phase_model(torch, name: str):
     return rep
 
 
+def _model_check_incremental(torch, name: str):
+    """A path with no kernel: prefill + decode steps (the absorbed latent
+    decode) against a full-sequence forward (expanded attention) over the
+    same tokens, in fp32 and in bf16, on a dropless MoE."""
+    import dataclasses
+    from repro_torch.models.lm import (apply_head, decode_step, forward,
+                                       init_params, param_count, prefill)
+    dev = torch.device("cuda")
+    published = _config(name)
+    base = published.with_overrides(moe=dataclasses.replace(
+        published.moe, capacity_factor=DROPLESS_CF))
+    S, max_len = MODEL_CHECK[name]
+    n_dec = 8
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, base.vocab_size, (1, S + n_dec),
+                           generator=gen).to(dev)
+
+    def run(cfg, params):
+        """(forward logits, incremental logits) at positions S-1..S+7,
+        and the incremental path's prefill ms and ms per decode step."""
+        hidden = forward(params, {"tokens": tokens}, cfg)
+        full = apply_head(params, hidden[:, S - 1:], cfg)[0]
+        del hidden
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens[:, :S]}, cfg,
+                                max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        outs = [logits[0, 0]]
+        t0 = time.perf_counter()
+        for i in range(S, S + n_dec):
+            logits, cache = decode_step(params, cache, tokens[:, i:i + 1],
+                                        i, cfg)
+            outs.append(logits[0, 0])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+        return full, torch.stack(outs), prefill_ms, decode_ms
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    rep = {"config": name, "cut": CUT.get(name, {}), "layers": base.n_layers,
+           "check": "prefill + decode vs forward",
+           "capacity_factor_override": DROPLESS_CF, "prompt": S,
+           "decode_steps": n_dec, "max_len": max_len}
+    print(f"chip_smoke: {name} model check: MoE capacity_factor "
+          f"{published.moe.capacity_factor} -> {DROPLESS_CF} (dropless)",
+          flush=True)
+    with torch.no_grad():
+        cfg = base.with_overrides(dtype="float32")
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, 0, device=dev)
+        rep["params"] = param_count(params)
+        f32, i32, _, _ = run(cfg, params)
+        rep["fp32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params
+        _free(torch)
+        err32 = rel(i32, f32)
+        rep["fp32"] = {"rel_err": err32, "tolerance": 1e-3,
+                       "finite": bool(torch.isfinite(i32).all())}
+
+        cfg = base                                               # bf16
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, 0, device=dev)
+        f16, i16, _, _ = run(cfg, params)
+        # the second run is the timed one (the first pays cuBLAS set-up)
+        _, _, pre_ms, dec_ms = run(cfg, params)
+        rep["bf16_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params
+        _free(torch)
+    err_i, err_f = rel(i16, f32), rel(f16, f32)
+    tol16 = max(2.0 * err_f, 2e-2)
+    rep["bf16"] = {"rel_err_incremental_vs_fp32": err_i,
+                   "rel_err_forward_vs_fp32": err_f,
+                   "rel_err_incremental_vs_forward": rel(i16, f16),
+                   "tolerance": tol16,
+                   "finite": bool(torch.isfinite(i16).all()),
+                   "prefill_ms": pre_ms, "decode_step_ms": dec_ms}
+    if not (rep["fp32"]["finite"] and err32 <= 1e-3):
+        emit({"phase": "model", **rep})
+        raise AssertionError(f"{name}: fp32 prefill + decode differs from "
+                             f"the forward: {err32}")
+    if not (rep["bf16"]["finite"] and err_i <= tol16):
+        emit({"phase": "model", **rep})
+        raise AssertionError(f"{name}: bf16 prefill + decode differs: "
+                             f"{err_i} > {tol16}")
+    return rep
+
+
+def phase_moe(torch, name: str = "deepseek-v2-236b"):
+    """The MoE layer at full width and its published capacity factor:
+    dispatch on the card equals the CPU's, ``apply_moe`` repeats bit for
+    bit, and its device time beside the card's bound."""
+    from repro_torch.models.moe import (apply_moe, capacity, init_moe,
+                                        moe_dispatch_indices, router_probs)
+    dev = torch.device("cuda")
+    cfg = _config(name)                                          # bf16
+    moe, d, ff = cfg.moe, cfg.d_model, cfg.moe.expert_ff
+    E, k = moe.n_experts, moe.top_k
+    gen = torch.Generator().manual_seed(4)
+    rep = {"config": name, "capacity_factor": moe.capacity_factor,
+           "dispatch": {}, "apply": {}}
+    failures = []
+    with torch.no_grad():
+        params = init_moe(torch.Generator(device=dev).manual_seed(3), cfg,
+                          torch.bfloat16)
+        # the serve prefill's token count; the same tokens pushed toward
+        # expert 0, which then takes every token and drops all but its
+        # capacity; a B = 4 decode step
+        router_0 = params["router"][:, 0] / params["router"][:, 0].norm()
+        for case, T, push in (("2048", 2048, 0.0),
+                              ("2048-skewed", 2048, 10.0), ("4", 4, 0.0)):
+            x = torch.randn((T, d), generator=gen).to(dev)
+            x = (x + push * router_0).to(torch.bfloat16)
+            gates, experts = router_probs(params, x, moe)
+            cap = capacity(T, moe)
+            idx, slot_gate = moe_dispatch_indices(experts, gates, E, cap)
+            idx_c, gate_c = moe_dispatch_indices(experts.cpu(), gates.cpu(),
+                                                 E, cap)
+            equal = bool(torch.equal(idx.cpu(), idx_c)
+                         and torch.equal(slot_gate.cpu(), gate_c))
+            dropped = T * k - int((idx_c < T).sum())
+            rep["dispatch"][case] = {"tokens": T, "capacity": cap,
+                                       "assignments": T * k,
+                                       "dropped": dropped, "equal": equal}
+            print(f"chip_smoke: moe dispatch {case} capacity={cap}: "
+                  f"{dropped} of {T * k} assignments dropped", flush=True)
+            if not equal:
+                failures.append(f"dispatch {case} differs from the CPU's")
+        if rep["dispatch"]["2048-skewed"]["dropped"] <= 0:
+            failures.append("the skewed tokens dropped nothing")
+        expert_bytes = 3 * d * ff * 2                  # one expert, bf16
+        shared_bytes = 3 * d * ff * moe.n_shared * 2 + d * E * 4
+        for label, (B, S) in (("prefill", (4, 512)), ("decode", (4, 1))):
+            T = B * S
+            x = torch.randn((B, S, d), generator=gen).to(dev, torch.bfloat16)
+            a, b = apply_moe(params, x, cfg), apply_moe(params, x, cfg)
+            identical = bool(torch.equal(a, b))
+            if not (identical and torch.isfinite(a).all()):
+                failures.append(f"apply_moe at {label} is not repeatable "
+                                "or not finite")
+            t = time_ms(torch, lambda: apply_moe(params, x, cfg), iters=10)
+            _, experts = router_probs(params, x.reshape(T, d), moe)
+            cap = capacity(T, moe)
+            idx, _ = moe_dispatch_indices(experts, torch.ones_like(
+                experts, dtype=torch.float32), E, cap)
+            kept = int((idx < T).sum())
+            hit = int(((idx < T).sum(1) > 0).sum())
+            # the least work for these tokens: the experts they reach,
+            # read once, and their kept assignments' GLUs
+            bytes_moved = (hit * expert_bytes + shared_bytes
+                           + 2 * T * d * 2)
+            flops = 6 * d * ff * (kept + T * moe.n_shared) + 2 * T * d * E
+            bound_ms, bound_by = _bound(bytes_moved, flops, "bfloat16")
+            rep["apply"][label] = {
+                "tokens": T, "capacity": cap, "experts_hit": hit,
+                "bit_identical": identical, **t, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                # capacity tiles run every expert: their weights alone
+                "all_experts_read_ms": E * expert_bytes / MEM_BW * 1e3}
+        del params
+        _free(torch)
+    if failures:
+        emit({"phase": "moe", **rep})
+        raise AssertionError(f"{name}: " + "; ".join(failures))
+    return rep
+
+
 # --------------------------------------------------------------------- #
 # phase 4: host vs device time of a full-width step
 # --------------------------------------------------------------------- #
@@ -880,10 +1087,9 @@ def _trace_report(prof, wall_ms, enqueue_ms, steps):
 
 def phase_trace(torch, name: str):
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
     from repro_torch.models.lm import decode_step, init_params, prefill
     dev = torch.device("cuda")
-    cfg = get_config(name).with_overrides(use_pallas_kernels=True)  # bf16
+    cfg = _config(name).with_overrides(use_pallas_kernels=True)  # bf16
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size,
                            (1, TRACE_PROMPT + TRACE_DECODE),
@@ -935,7 +1141,6 @@ def phase_trace(torch, name: str):
 # phase 5: the main path — serve through RealPlane
 # --------------------------------------------------------------------- #
 def phase_serve(torch, name: str):
-    from repro_torch.configs import get_config
     from repro_torch.core.knapsack import PackratOptimizer
     from repro_torch.core.profiler import ProfileSpec, phase_profiles
     from repro_torch.launch.bench_serving import (REAL_DRAIN_FACTOR,
@@ -945,7 +1150,7 @@ def phase_serve(torch, name: str):
     from repro_torch.serving import RealPlane
     from repro_torch.serving.scenarios import ScenarioContext, get_scenario
     units, max_batch, decode_steps, seed = 4, 4, 8, 0
-    cfg = get_config(name).with_overrides(use_pallas_kernels=True)   # bf16
+    cfg = _config(name).with_overrides(use_pallas_kernels=True)   # bf16
     t0 = time.perf_counter()
     engine = LmEngine(cfg, seed=seed, max_seq=1024, default_seq_bucket=512)
     engine_s = time.perf_counter() - t0

@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -200,6 +202,21 @@ def library(name: str) -> ctypes.CDLL:
         build_kernels()
         lib = _libs[name]
     return lib
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel call.
+
+    A kernel fills its outputs through ``ctypes``, so they have no
+    ``grad_fn``: under grad mode, an input that requires grad would see
+    its gradient stop at the kernel without a word.  The plain version
+    (a CPU tensor) is differentiable and is not checked.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; an input requires "
+            "grad under grad mode, and its gradient would stop here. Call "
+            "it under torch.no_grad() or with use_pallas_kernels off")
 
 
 def check(name: str, err: int) -> None:

@@ -143,6 +143,7 @@ def launch(q, k_cache, v_cache, lengths, *, force: str = ""):
     lets the shape decide (:func:`route`); ``"cuda_core"`` or
     ``"tensor_core"`` forces the split kernel's route, and one that
     cannot take the shape raises."""
+    build.refuse_grad("decode_attention", q, k_cache, v_cache)
     code = build.route_code("decode_attention", force)
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]

@@ -72,6 +72,7 @@ def launch(q, k, v, *, causal: bool, window: int, force: str = ""):
     lets the shape decide (:func:`route`); ``"cuda_core"`` or
     ``"tensor_core"`` forces a route, and one that cannot take the shape
     raises."""
+    build.refuse_grad("flash_attention", q, k, v)
     code = build.route_code("flash_attention", force)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]

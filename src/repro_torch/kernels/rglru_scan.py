@@ -53,6 +53,7 @@ def rglru_scan(a, b, *, block_s: int = 128, block_w: int = 512):
     if dtype not in build.DTYPE_CODES or b.dtype != a.dtype:
         raise ValueError(f"rglru_scan: a and b must both be float32 or "
                          f"bfloat16, got {a.dtype}, {b.dtype}")
+    build.refuse_grad("rglru_scan", a, b)
     a, b = a.contiguous(), b.contiguous()
     h = torch.empty((B, S, W), dtype=torch.float32, device=dev)
     err = build.library("rglru_scan").rglru_scan_fwd(

@@ -103,6 +103,7 @@ def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
     lets the shape decide (:func:`route`); ``"cuda_core"`` or
     ``"tensor_core"`` forces a route, and one that cannot take the shape
     raises."""
+    build.refuse_grad("ssd_scan", x, dt, a_log, B_in, C_in)
     code = build.route_code("ssd_scan", force)
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]

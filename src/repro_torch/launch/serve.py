@@ -7,8 +7,9 @@ batch size's latency is one ``decode_step`` of the reduced-config model
 request rate exercises online reconfiguration (paper Fig. 11).  The
 reduced configs keep ``use_pallas_kernels=False``, as in the reference,
 so the step runs the port's plain PyTorch attention and no CUDA kernel
-of the port.  Architectures whose family is not ported yet (MoE/MLA,
-encoder-decoder, vision and audio frontends) raise ``not yet ported``.
+of the port (MLA and MoE have none in either package).  Architectures
+whose family is not ported yet (encoder-decoder, vision and audio
+frontends) raise ``not yet ported``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\

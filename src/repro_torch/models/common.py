@@ -37,14 +37,14 @@ def dense_init(gen: torch.Generator, shape, in_axis=0,
     std = 1.0 / math.sqrt(max(1, fan_in))
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)     # in place: one fp32 copy of a leaf
 
 
 def embed_init(gen: torch.Generator, shape,
                dtype=torch.float32) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     t.normal_(generator=gen)
-    return (t * 0.02).to(dtype)
+    return t.mul_(0.02).to(dtype)
 
 
 # ----------------------------------------------------------------------- #

@@ -1,9 +1,9 @@
 """Decoder LM assembly in PyTorch: embeddings → layer stack → head.
 
-A port of ``repro/models/lm.py`` for decoder-only configurations whose
-blocks are ported (the attention family, Mamba2 SSM and RG-LRU);
-encoder-decoder and vision inputs come with a later slice and raise
-``NotImplementedError``.
+A port of ``repro/models/lm.py`` for decoder-only configurations: the
+attention family, the DeepSeek MLA / MoE stacks (dense prefix layers
+included), Mamba2 SSM and RG-LRU.  Encoder-decoder and vision inputs
+come with a later slice and raise ``NotImplementedError``.
 
 The layer stack is ``prefix + pattern × n_repeats + suffix``.  Both
 parameter layouts of the reference are accepted: unrolled (a list of
@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .. import resolve_device
-from ..configs.base import ModelConfig
+from ..configs.base import MLA_MOE, ModelConfig
 from .blocks import apply_block, init_block, init_block_cache, torch_dtype
 from .common import apply_norm, embed_init, init_norm
 
@@ -57,10 +57,19 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
 def _stack(trees: List[PyTree]) -> PyTree:
     """Stack same-structured trees leaf by leaf.  The source dicts give up
     each leaf as it is stacked, so at most one leaf is held twice (a
-    full-width 9B model would otherwise peak at twice its weights)."""
+    full-width 9B model would otherwise peak at twice its weights; for an
+    MoE layer that leaf is one (R, E, d, ff) expert stack)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
@@ -83,8 +92,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
                                     dtype=dtype)
-    params["prefix"] = [init_block(gen, cfg, k) for k in cfg.prefix]
-    params["suffix"] = [init_block(gen, cfg, k) for k in cfg.suffix]
+    # prefix and suffix blocks take a dense MLP; pattern blocks do not
+    params["prefix"] = [init_block(gen, cfg, k, dense_layer=True)
+                        for k in cfg.prefix]
+    params["suffix"] = [init_block(gen, cfg, k, dense_layer=True)
+                        for k in cfg.suffix]
     layers = [[init_block(gen, cfg, kind) for kind in cfg.pattern]
               for _ in range(cfg.n_repeats)]
     if cfg.scan_layers:
@@ -95,6 +107,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
     else:
         params["pattern"] = layers
     return params
+
+
+def param_count(params: PyTree) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def active_param_count(cfg: ModelConfig, params: PyTree) -> int:
+    """Parameters touched per token (MoE: top_k + shared experts only)."""
+    total = param_count(params)
+    if cfg.moe is None:
+        return total
+    moe = cfg.moe
+    n_moe_layers = sum(1 for k in cfg.layers if k == MLA_MOE)
+    per_expert = 3 * cfg.d_model * moe.expert_ff
+    inactive = n_moe_layers * (moe.n_experts - moe.top_k) * per_expert
+    return total - inactive
 
 
 # --------------------------------------------------------------------- #
@@ -270,6 +298,6 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
 
 
-__all__ = ["Model", "apply_head", "build_model", "decode_step",
-           "embed_tokens", "forward", "head_weights", "init_cache",
-           "init_params", "prefill"]
+__all__ = ["Model", "active_param_count", "apply_head", "build_model",
+           "decode_step", "embed_tokens", "forward", "head_weights",
+           "init_cache", "init_params", "param_count", "prefill"]

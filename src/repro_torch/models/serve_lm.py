@@ -13,6 +13,11 @@ LLM inference:
   step updates **in place** (the reference donates the cache buffers to
   its jitted step to the same effect).
 
+The kernels are those of the configuration's blocks: an MLA
+configuration (deepseek) runs blocked prefill attention, an absorbed
+latent decode and its MoE in plain PyTorch and launches no kernel, as
+the reference's MLA blocks ignore ``use_pallas_kernels``.
+
 The engine owns a KV-cache pool: each decode cell ⟨b⟩ keeps a resident
 ⟨cache, position⟩ it advances every step.  Every cell is built and run
 once inside the factory, outside the timed path, so ``RealPlane``'s

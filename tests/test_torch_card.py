@@ -333,3 +333,43 @@ def test_cuda_micro_step_matches_cpu(cuda, name):
     assert run() is None and make_runner(4, 16) is run
     launched = KERNEL_STATS["flash_attention"].launches - before
     assert launched == (2 if name == "attn-tiny" else 0)   # warm + run
+
+
+def _grad_cases(dev):
+    """name -> (inputs that require grad, the kernel wrapper's call on
+    them): small fp32 shapes every wrapper takes."""
+    B, S, H, D = 1, 32, 2, 16
+    q, k, v, a, b = (_t(x, "float32").to(dev).requires_grad_() for x in
+                     _inputs(13, (B, S, H, D), (B, S, 1, D), (B, S, 1, D),
+                             (B, S, 64), (B, S, 64)))
+    x, Bi, Ci = (_t(x, "float32").to(dev).requires_grad_() for x in
+                 _inputs(14, (B, S, 4, 8), (B, S, 1, 8), (B, S, 1, 8)))
+    dt = torch.full((B, S, 4), 0.1, device=dev, requires_grad=True)
+    a_log = torch.zeros(4, device=dev, requires_grad=True)
+    lengths = torch.full((B,), S, device=dev)
+    return {
+        "flash_attention": ((q, k, v), lambda: ops.flash_attention(q, k, v)),
+        "decode_attention": ((q, k, v), lambda: ops.decode_attention(
+            q[:, :1], k, v, lengths)),
+        "ssd_scan": ((x, dt, a_log, Bi, Ci), lambda: ops.ssd_scan(
+            x, dt, a_log, Bi, Ci, chunk=16)),
+        "rglru_scan": ((a, b), lambda: ops.rglru_scan(torch.sigmoid(a), b)),
+    }
+
+
+@pytest.mark.parametrize("name", ("flash_attention", "decode_attention",
+                                  "ssd_scan", "rglru_scan"))
+def test_cuda_kernels_refuse_inputs_that_require_grad(cuda, name):
+    """A kernel's outputs have no grad_fn: under grad mode, an input that
+    requires grad raises instead of losing its gradient at the kernel;
+    under no_grad the same call launches."""
+    _, call = _grad_cases(cuda)[name]
+    before = KERNEL_STATS[name].launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert KERNEL_STATS[name].launches == before
+    with torch.no_grad():
+        out = call()
+    assert KERNEL_STATS[name].launches > before
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.device.type == "cuda" and bool(torch.isfinite(out).all())

@@ -278,3 +278,32 @@ def test_cpu_tensors_take_the_plain_route_and_launch_nothing():
     for name, stats in KERNEL_STATS.items():
         assert stats.launches == before[name][0]
         assert stats.cpu_calls == before[name][1] + 1
+
+
+@pytest.mark.parametrize("name", ("flash_attention", "decode_attention",
+                                  "ssd_scan", "rglru_scan"))
+def test_cpu_route_carries_gradients(name):
+    """On CPU tensors each wrapper computes its plain version, which
+    autograd differentiates: every input that requires grad gets a
+    finite, nonzero gradient (on a card the wrappers refuse such inputs;
+    ``tests/test_torch_card.py``)."""
+    B, S, H, D = 1, 32, 2, 16
+    q, k, v, a, b = (_t(x, "float32").requires_grad_() for x in _inputs(
+        13, (B, S, H, D), (B, S, 1, D), (B, S, 1, D), (B, S, 64), (B, S, 64)))
+    x, Bi, Ci = (_t(x, "float32").requires_grad_() for x in _inputs(
+        14, (B, S, 4, 8), (B, S, 1, 8), (B, S, 1, 8)))
+    dt = torch.full((B, S, 4), 0.1, requires_grad=True)
+    a_log = torch.zeros(4, requires_grad=True)
+    inputs, out = {
+        "flash_attention": lambda: ((q, k, v), ops.flash_attention(q, k, v)),
+        "decode_attention": lambda: ((q, k, v), ops.decode_attention(
+            q[:, :1], k, v, torch.full((B,), S))),
+        "ssd_scan": lambda: ((x, dt, a_log, Bi, Ci), ops.ssd_scan(
+            x, dt, a_log, Bi, Ci, chunk=16)),
+        "rglru_scan": lambda: ((a, b), ops.rglru_scan(torch.sigmoid(a), b)),
+    }[name]()
+    outs = out if isinstance(out, tuple) else (out,)
+    sum(o.square().sum() for o in outs).backward()
+    for t in inputs:
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.abs().max()) > 0

@@ -5,7 +5,10 @@ weight bridge (``repro_torch.models.convert.params_from_numpy``) carries
 them over as numpy arrays, so both sides run the same weights on the
 same seeded tokens.  Configurations: ``lm-tiny`` (reduced gemma3-1b:
 5 local + 1 global layer, window 64, qk-norm, sandwich norms, tied and
-scaled embeddings, head dim 16) and reduced llama3-8b (GQA, SwiGLU).
+scaled embeddings, head dim 16), reduced llama3-8b (GQA, SwiGLU) and
+reduced deepseek-v2-236b / deepseek-v3-671b (MLA with q-LoRA, dense
+prefix layers, 8 routed experts top-2 with shared experts; the reduced
+capacity factor is dropless, as the reference's ``reduced()`` sets it).
 
 Tolerance (fp32): 2e-4 of the largest logit magnitude, the reference's
 own bound for prefill + decode == forward (``tests/test_models.py``).
@@ -104,7 +107,7 @@ def _leaves(tree):
     return [] if tree is None else [tree]
 
 
-ARCHS = ["lm-tiny", "llama3-8b"]
+ARCHS = ["lm-tiny", "llama3-8b", "deepseek-v2-236b", "deepseek-v3-671b"]
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -165,6 +168,8 @@ def _prefill_then_decode(model, params, cfg, tok, n_pre, max_len):
     ("lm-tiny", 2, 24, 4),
     ("llama3-8b", 2, 24, 4),
     ("lm-tiny", 1, 96, 8),         # decodes past the sliding window (64)
+    ("deepseek-v2-236b", 2, 24, 4),    # absorbed latent decode
+    ("deepseek-v3-671b", 2, 24, 4),
 ])
 def test_prefill_then_decode_matches_forward_and_reference(name, B, S,
                                                            n_dec):
@@ -215,10 +220,52 @@ def test_kernel_route_matches_reference_kernels():
     assert _rel(got, want, scale) < TOL
 
 
+def test_stacked_moe_params_through_the_bridge():
+    """deepseek-v2's stacked layout: the MLA and MoE leaves, the fp32
+    router and the (R, E, d, ff) experts, bridge and run unchanged; the
+    stacked c_kv/k_rope caches are written through their views."""
+    (jcfg, jm, jp), (tcfg, tm, tp) = _pair("deepseek-v2-236b",
+                                           scan_layers=True)
+    moe = tp["pattern"][0]["moe"]
+    assert tcfg.scan_layers and moe["router"].dtype == torch.float32
+    assert tuple(moe["gate"].shape) == (2, 8, 64, 64)
+    assert "mlp" in tp["prefix"][0] and "moe" not in tp["prefix"][0]
+    tok = _tokens(jcfg, 2, 40, seed=3)
+    want = japply_head(jp, jm.forward(jp, {"tokens": jnp.asarray(tok)}),
+                       jcfg)
+    with torch.no_grad():
+        full = apply_head(tp, tm.forward(tp, {"tokens": torch.from_numpy(
+            tok).long()}), tcfg)
+        inc = _prefill_then_decode(tm, tp, tcfg, tok, 36, 40)
+    scale = float(jnp.max(jnp.abs(want)))
+    assert _rel(full, want, scale) < TOL
+    assert _rel(inc, full[:, 35:].numpy(), scale) < TOL
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "deepseek-v2-236b",
+                                  "deepseek-v3-671b"])
+@pytest.mark.parametrize("scan_layers", [False, True])
+def test_param_counts_match_reference(name, scan_layers):
+    from repro.models.lm import active_param_count as jactive
+    from repro.models.lm import param_count as jcount
+    from repro_torch.models.lm import active_param_count, param_count
+    kw = {"scan_layers": True} if scan_layers else {}
+    (jcfg, _, jp), (tcfg, _, tp) = _pair(name, **kw)
+    assert param_count(tp) == jcount(jp) > 0
+    assert active_param_count(tcfg, tp) == jactive(jcfg, jp)
+    if tcfg.moe is not None:
+        assert active_param_count(tcfg, tp) < param_count(tp)
+
+
 def test_unported_kinds_raise():
-    from repro_torch.models.blocks import init_block
-    cfg = get_config("deepseek-v2-236b").reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="mla not yet ported"):
-        init_block(torch.Generator(), cfg, cfg.prefix[0])
+    from repro_torch.configs.base import MLA_MOE
+    from repro_torch.models.blocks import apply_block, init_block
+    cfg = get_config("deepseek-v2-236b").reduced(dtype="float32",
+                                                 moe_ep=True)
+    params = init_block(torch.Generator(), cfg, MLA_MOE)
+    x = torch.zeros((1, 4, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="moe_ep not yet ported"):
+        apply_block(params, x, cfg, MLA_MOE, mode="train",
+                    positions=torch.zeros((1, 4), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         build_model(get_config("seamless-m4t-medium").reduced())

@@ -57,8 +57,20 @@ def test_make_torch_runner_runs_a_decode_step_per_batch():
         assert make_runner(b)() is None
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "seamless-m4t-medium",
-                                  "internvl2-1b"])
+def test_serve_runs_reduced_deepseek_on_cpu(capsys):
+    """deepseek-v2-236b's reduced config (MLA, dense prefix, MoE of 8
+    experts top-2) through the whole loop: every request completes."""
+    assert serve.main(["--arch", "deepseek-v2-236b", "--duration", "2",
+                       "--rate-step", "1", "--units", "4",
+                       "--initial-batch", "2", "--max-batch", "4",
+                       "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    arch, requests, completed = LINES["count"].match(lines[0]).groups()
+    assert arch == "deepseek-v2-236b" and int(requests) == int(completed) > 0
+    assert LINES["latency"].match(lines[1])
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve.main(["--arch", arch, "--device", "cpu"])

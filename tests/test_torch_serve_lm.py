@@ -303,3 +303,31 @@ def test_launcher_runs_lm_tiny_on_cpu(tmp_path, capsys):
     for key in sc["policies"]:
         counts[key] = sc[key]["phases"][PHASE_PREFILL]["completed"]
     assert all(v == sc["offered_prompts"] for v in counts.values())
+
+
+def test_engine_serves_reduced_deepseek_on_cpu():
+    """deepseek-v2-236b's MLA/MoE stack behind the engine (stacked
+    layout, as the full config): prefill + decode through the latent
+    cache equal the full forward on a dropless MoE, and every runner
+    cell runs with no kernel call, since MLA and MoE have none."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-236b").reduced(
+        dtype="float32", use_pallas_kernels=True, scan_layers=True)
+    eng = LmEngine(cfg, max_seq=32, default_seq_bucket=16, device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 24)))
+    with torch.no_grad():
+        full = apply_head(eng.params, eng.model.forward(
+            eng.params, {"tokens": tok}), cfg)
+    logits, cache = eng.prefill(tok[:, :20])
+    errs = [float((logits[:, 0] - full[:, 19]).abs().max())]
+    for i in range(20, 24):
+        logits, _ = eng.decode_step(cache, tok[:, i:i + 1], i)
+        errs.append(float((logits[:, 0] - full[:, i]).abs().max()))
+    assert max(errs) / float(full.abs().max()) < 2e-4
+    calls = {n: s.cpu_calls for n, s in KERNEL_STATS.items()}
+    make = eng.factory()
+    for b in (1, 4):
+        assert make(1, b, PHASE_PREFILL)() is None
+        assert make(1, b, PHASE_DECODE)() is None
+    assert {n: s.cpu_calls for n, s in KERNEL_STATS.items()} == calls
