@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device, ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``) and no
-network.  Four LM serving paths, each a registered configuration at
+network.  Six LM serving paths, each a registered configuration at
 full width with seeded random weights, the micro models of the real
 plane, and the kernels each one runs:
 
@@ -17,6 +17,15 @@ plane, and the kernels each one runs:
   is cut to the dense MLA prefix layer and 2 of 59 MLA_MOE repeats
   (:data:`CUT`): ~9.3B parameters, 18.7 GB in bf16 and 37 GB in fp32,
   where 59 repeats would be ~470 GB;
+* seamless-m4t-medium — an encoder-decoder over precomputed audio
+  frames: ``flash_attention`` and ``decode_attention`` in its 12
+  decoder layers' self-attention (16 heads on 16, head dim 64); its 12
+  encoder layers and the decoder's cross-attention run blocked
+  attention, as in the reference;
+* internvl2-1b — 256 precomputed patch embeddings in front of the text,
+  24 attention layers through ``flash_attention`` and
+  ``decode_attention`` at head dim 64 and a GQA group of 7 (14 heads on
+  2);
 * attn-tiny — ``flash_attention`` on its CUDA-core route (fp32, head
   dim 16); mlp-tiny and mlp run no kernel of the port.
 
@@ -29,13 +38,13 @@ non-zero:
    card, fp32 and bf16: the shape grids of ``tests/test_kernels.py``,
    head dim 8, GQA groups 1-16, windows, partial tiles, a single chunk,
    attn-tiny's shapes (fp32, 2 heads of 16, S = 16, 8 and 4 at B = 1,
-  16 and 256; the wrapper pads 8 and 4 to 16, the forced route takes
-  them as they are), and the serving shapes of the three LM paths at
-  B = 1 and 4 (decode
-   also at B = 8 and at the serve phase's cache lengths; decode lengths
-   of 1, one split, one split + 1 and S; RG-LRU partial chunks and
-   column tiles).  ``flash_attention``, ``decode_attention`` and
-   ``ssd_scan`` have two routes each (CUDA cores, tensor cores for
+   16 and 256; the wrapper pads 8 and 4 to 16, the forced route takes
+   them as they are), and the serving shapes of the LM paths at B = 1
+   and 4 (head dim 64 at 16 heads on 16 and 14 on 2 for seamless-m4t-
+   medium and internvl2-1b; decode also at B = 8 and at the serve
+   phase's cache lengths; decode lengths of 1, one split, one split + 1
+   and S; RG-LRU partial chunks and column tiles).  ``flash_attention``,
+   ``decode_attention`` and ``ssd_scan`` have two routes each (CUDA cores, tensor cores for
    bf16): every case runs through the public wrapper and through each
    route that takes it, forced, and the wrapper's choice by shape must
    match the Python route rule bit for bit; ``rglru_scan`` has one
@@ -55,8 +64,13 @@ non-zero:
    1024 tokens (past its 512-token window, so the ring cache rolls),
    mamba2-130m 1000 tokens (not a chunk multiple, so the dt = 0 padding
    runs), recurrentgemma-9b 2100 tokens (past its 2048-token window)
-   into a 4096-slot cache.  fp32 logits must agree to 1e-3 of their
-   largest magnitude (summation order only); in bf16 the kernel path
+   into a 4096-slot cache, seamless-m4t-medium a 1000-token decoder
+   prompt over 2048 encoder frames (the encoder on blocked attention's
+   tiled path; 1000 is no multiple of the flash wrapper's 512-row block,
+   so its padding runs) and internvl2-1b 256 patches + 744 tokens, both
+   into 2048 slots.  Each prompt batch carries the inputs
+   ``input_specs`` names, seeded.  fp32 logits must agree to 1e-3 of
+   their largest magnitude (summation order only); in bf16 the kernel path
    must stay within twice the plain bf16 path's distance from the fp32
    logits (floor 2e-2).  deepseek-v2-236b has no kernel, so its check
    holds a 512-token prefill (1024 slots) and 8 absorbed decode steps
@@ -78,9 +92,11 @@ non-zero:
    ``torch.profiler``: wall time, host time to enqueue, device busy time,
    the device's idle share, CUDA launches and the top device kernels.
 5. **serve** — the main path, per configuration: the full-width bf16
-   ``LmEngine`` behind ``RealPlane``, per-phase profiles, then
-   ``run_lm_policy`` for ``static`` and ``packrat`` over a seeded
-   steady-poisson trace.  Every prompt must complete, every kernel of the
+   ``LmEngine`` behind ``RealPlane`` (its prompts carry the inputs
+   ``input_specs`` names: 512 frames and 512 tokens for
+   seamless-m4t-medium, 256 patches and 256 tokens for internvl2-1b),
+   per-phase profiles, then ``run_lm_policy`` for ``static`` and
+   ``packrat`` over a seeded steady-poisson trace.  Every prompt must complete, every kernel of the
    path must launch, each only on the route ``PATHS`` requires for it
    (the tensor cores for the attention kernels and ``ssd_scan``, the
    chunked RG-LRU scan), no other kernel may launch, and no wrapper may
@@ -131,7 +147,11 @@ PATHS = {"gemma3-1b": {"flash_attention": "tensor_core",
          "recurrentgemma-9b": {"rglru_scan": "chunked",
                                "flash_attention": "tensor_core",
                                "decode_attention": "tensor_core"},
-         "deepseek-v2-236b": {}}
+         "deepseek-v2-236b": {},
+         "seamless-m4t-medium": {"flash_attention": "tensor_core",
+                                 "decode_attention": "tensor_core"},
+         "internvl2-1b": {"flash_attention": "tensor_core",
+                          "decode_attention": "tensor_core"}}
 # path -> overrides that cut a configuration to one card: deepseek-v2-236b
 # keeps its full width and its dense MLA prefix layer, and 2 of its 59
 # MLA_MOE repeats (each ~3.97B parameters, 7.9 GB in bf16): 59 repeats
@@ -144,10 +164,19 @@ ROUTES = ("cuda_core", "tensor_core", "chunked")
 # the host calls that put a kernel on the device, as the profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
-# path -> (prompt tokens, cache slots) of the model check
+# path -> (prompt positions, cache slots) of the model check; a vision
+# prompt's positions include its patches
 MODEL_CHECK = {"gemma3-1b": (1024, 2048), "mamba2-130m": (1000, 2048),
                "recurrentgemma-9b": (2100, 4096),
-               "deepseek-v2-236b": (512, 1024)}
+               "deepseek-v2-236b": (512, 1024),
+               "seamless-m4t-medium": (1000, 2048),
+               "internvl2-1b": (1000, 2048)}
+# path -> encoder frames of the model check, where input_specs' count
+# (min(prompt, n_frames)) is not the one wanted
+MODEL_FRAMES = {"seamless-m4t-medium": 2048}
+# the head-dim-64 serving shapes (H, Hkv): seamless-m4t-medium's decoder
+# and internvl2-1b's group of 7
+D64_SERVING = ((16, 16), (14, 2))
 # micro models of the real plane: model -> {kernel: the route its serving
 # run must launch}; any other launch fails the path.  attn-tiny runs the
 # fp32 flash kernel (2 heads of head dim 16), the MLPs no kernel
@@ -381,6 +410,29 @@ def _config(name: str):
     return get_config(name).with_overrides(**CUT.get(name, {}))
 
 
+def _prompt(torch, cfg, S: int, n_dec: int, gen, frames: int = 0):
+    """A seeded batch-1 prompt of S positions on the card, with the inputs
+    ``input_specs`` names (embeddings in the model dtype; ``frames``, if
+    given, sets the encoder's frame count), and n_dec tokens to decode
+    after it.  Tokens are drawn first, as one (1, text + n_dec) draw."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.lm import input_specs
+    dev = torch.device("cuda")
+    specs = input_specs(cfg, ShapeConfig("smoke", seq_len=S, global_batch=1,
+                                         kind="prefill"))
+    n_text = specs["tokens"].shape[1]
+    tokens = torch.randint(0, cfg.vocab_size, (1, n_text + n_dec),
+                           generator=gen).to(dev)
+    batch = {"tokens": tokens[:, :n_text]}
+    for name, spec in specs.items():
+        if name != "tokens":
+            shape = ((1, frames, cfg.d_model) if name == "frames" and frames
+                     else spec.shape)
+            batch[name] = torch.randn(shape, generator=gen).to(dev,
+                                                               spec.dtype)
+    return batch, tokens[:, n_text:]
+
+
 def _free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -467,7 +519,9 @@ def phase_kernels(torch):
     # flash: tests/test_kernels.py grids, head dim 8, GQA groups 1, 2, 4,
     # 8 and 16, windows 16/48/100, one partial 64-row tile (S = 16, 32,
     # 48 after padding), and the serving shapes of gemma3-1b (4 heads on
-    # 1) and recurrentgemma-9b (16 heads on 1, window 2048) at B = 1, 4
+    # 1), recurrentgemma-9b (16 heads on 1, window 2048), seamless-m4t-
+    # medium (16 on 16, head dim 64) and internvl2-1b (14 on 2, a group
+    # of 7, head dim 64) at B = 1, 4
     flash = []
     for dt in TOL:
         for B, S, H, Hkv, D in ((1, 64, 4, 4, 32), (2, 128, 4, 2, 32),
@@ -484,6 +538,8 @@ def phase_kernels(torch):
                 for window in (0, 512):
                     flash.append((dt, B, S, 4, 1, 256, window, 512))
             flash.append((dt, B, 512, 16, 1, 256, 2048, 512))
+            for H, Hkv in D64_SERVING:
+                flash.append((dt, B, 512, H, Hkv, 64, 0, 512))
     # attn-tiny (the micro path): fp32, 2 heads of 16, its rungs' S = 16,
     # 8 and 4 (the wrapper pads 8 and 4 to 16), at B = 1, 16 and 256
     for B in (1, 16, 256):
@@ -515,7 +571,8 @@ def phase_kernels(torch):
         same_route("flash_attention", shape, dt, rule,
                    [flash_mod.launch(q, k, v, causal=True, window=window)],
                    [forced[rule]])
-        if D == 256 or (H, D) == ATTN_TINY_HD:
+        if D == 256 or (H, D) == ATTN_TINY_HD or (
+                D == 64 and (H, Hkv) in D64_SERVING):
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(v, H // Hkv, 2).transpose(1, 2)
@@ -559,7 +616,9 @@ def phase_kernels(torch):
     # the serving shapes: gemma3-1b's global cache (S = 1024, 520 valid
     # rows, as the serve phase's decode steps leave it) and its ring
     # cache (S = 512, full) at B = 1, 4; recurrentgemma-9b (16 heads on
-    # 1) at S = 1024, 520 valid, B = 1, 4; B = 8 with random lengths
+    # 1) at S = 1024, 520 valid, B = 1, 4; B = 8 with random lengths;
+    # the head-dim-64 paths (16 heads on 16, 14 on 2) at S = 1024 with
+    # lengths 1, 64, 65 and 1024, and 520 valid at B = 1, 4
     split = decode_mod.SPLIT_ROWS
     decode = []
     for dt in TOL:
@@ -579,6 +638,10 @@ def phase_kernels(torch):
             decode.append((dt, B, 1024, 4, 1, 256, 1024, (520,) * B))
             decode.append((dt, B, 512, 4, 1, 256, 512, (512,) * B))
             decode.append((dt, B, 1024, 16, 1, 256, 1024, (520,) * B))
+        for H, Hkv in D64_SERVING:
+            decode.append((dt, 4, 1024, H, Hkv, 64, 1024, edges + (1024,)))
+            for B in (1, 4):
+                decode.append((dt, B, 1024, H, Hkv, 64, 1024, (520,) * B))
     for dt, B, S, H, Hkv, D, blk, lens in decode:
         dtype = getattr(torch, dt)
         q = randn((B, 1, H, D), dtype)
@@ -605,7 +668,7 @@ def phase_kernels(torch):
                             route=r)
         same_route("decode_attention", shape, dt, rule,
                    [decode_mod.launch(q, kc, vc, lengths)], [forced[rule]])
-        if D == 256:
+        if D == 256 or (D == 64 and (H, Hkv) in D64_SERVING):
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(kc, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(vc, H // Hkv, 2).transpose(1, 2)
@@ -817,21 +880,20 @@ def phase_model(torch, name: str):
     S, max_len = MODEL_CHECK[name]
     n_dec = 8
     gen = torch.Generator().manual_seed(1)
-    tokens = torch.randint(0, base.vocab_size, (1, S + n_dec),
-                           generator=gen).to(dev)
+    batch, dec = _prompt(torch, base, S, n_dec, gen,
+                         MODEL_FRAMES.get(name, 0))
 
     def run(cfg, params):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens[:, :S]}, cfg,
-                                max_len=max_len)
+        logits, cache = prefill(params, batch, cfg, max_len=max_len)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         outs = [logits[:, 0]]
         t0 = time.perf_counter()
-        for i in range(S, S + n_dec):
-            logits, cache = decode_step(params, cache, tokens[:, i:i + 1],
-                                        i, cfg)
+        for i in range(n_dec):
+            logits, cache = decode_step(params, cache, dec[:, i:i + 1],
+                                        S + i, cfg)
             outs.append(logits[:, 0])
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / n_dec
@@ -841,6 +903,7 @@ def phase_model(torch, name: str):
         return float((a - b).abs().max() / b.abs().max())
 
     rep = {"config": name, "layers": base.n_layers, "prompt": S,
+           "inputs": {k: list(v.shape) for k, v in batch.items()},
            "decode_steps": n_dec, "max_len": max_len}
     with torch.no_grad():
         cfg = base.with_overrides(dtype="float32", use_pallas_kernels=True)
@@ -1091,17 +1154,15 @@ def phase_trace(torch, name: str):
     dev = torch.device("cuda")
     cfg = _config(name).with_overrides(use_pallas_kernels=True)  # bf16
     gen = torch.Generator().manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab_size,
-                           (1, TRACE_PROMPT + TRACE_DECODE),
-                           generator=gen).to(dev)
+    batch, dec = _prompt(torch, cfg, TRACE_PROMPT, TRACE_DECODE, gen)
 
     def run_prefill():
-        return prefill(params, {"tokens": tokens[:, :TRACE_PROMPT]}, cfg,
-                       max_len=TRACE_MAX_LEN)
+        return prefill(params, batch, cfg, max_len=TRACE_MAX_LEN)
 
     def run_decode(cache):
-        for i in range(TRACE_PROMPT, TRACE_PROMPT + TRACE_DECODE):
-            decode_step(params, cache, tokens[:, i:i + 1], i, cfg)
+        for i in range(TRACE_DECODE):
+            decode_step(params, cache, dec[:, i:i + 1], TRACE_PROMPT + i,
+                        cfg)
 
     def traced(fn, steps):
         torch.cuda.synchronize()
@@ -1133,7 +1194,9 @@ def phase_trace(torch, name: str):
             rep_decode["device_busy_ms_per_step"] <= 0:
         raise AssertionError(f"{name}: the trace saw no device time")
     return {"config": name, "dtype": cfg.dtype, "batch": 1,
-            "prompt": TRACE_PROMPT, "decode_steps": TRACE_DECODE,
+            "prompt": TRACE_PROMPT,
+            "inputs": {k: list(v.shape) for k, v in batch.items()},
+            "decode_steps": TRACE_DECODE,
             "prefill": rep_prefill, "decode": rep_decode}
 
 
@@ -1236,20 +1299,33 @@ def phase_micro(torch, name: str):
                   for _ in range(3)]
         want = micro.attn_step(*cpu_in)
         card_in = [t.to(dev) for t in cpu_in]
-        got = micro.attn_step(*card_in)
+
+        def card_step():
+            return micro.attn_step(*card_in).cpu()
     else:
         dim, depth = MICRO_MLP[name]
         params = micro.init_mlp_params(dim, depth, 0, "cpu")
         x = torch.randn((b, dim), generator=gen)
         want = micro.mlp_step(x, params)
-        got = micro.mlp_step(x.to(dev), [(w.to(dev), c.to(dev))
-                                         for w, c in params])
-    torch.cuda.synchronize()
-    err, ok = _compare(torch, got.cpu(), want, "float32")
+        card_x = x.to(dev)
+        card_params = [(w.to(dev), c.to(dev)) for w, c in params]
+
+        def card_step():
+            return micro.mlp_step(card_x, card_params).cpu()
+    got = card_step()
+    err, ok = _compare(torch, got, want, "float32")
     rep = {"model": name, "step_check": {
         "batch": b, "max_abs_err": err, "ok": ok,
         "tolerance": dict(zip(("atol", "rtol"), TOL["float32"]))}}
     if not ok:
+        # what a failure needs to be told apart: the worst element, and
+        # whether the same step on the same card tensors repeats it
+        i = int((got - want).abs().argmax())
+        rep["step_check"]["worst"] = {
+            "index": i, "card": float(got.flatten()[i]),
+            "cpu": float(want.flatten()[i]),
+            "again_max_abs_err": _compare(torch, card_step(), want,
+                                          "float32")[0]}
         emit({"phase": "micro", **rep})
         raise AssertionError(f"{name}: the card's step differs from the "
                              f"CPU's: {err}")

@@ -7,9 +7,9 @@ batch size's latency is one ``decode_step`` of the reduced-config model
 request rate exercises online reconfiguration (paper Fig. 11).  The
 reduced configs keep ``use_pallas_kernels=False``, as in the reference,
 so the step runs the port's plain PyTorch attention and no CUDA kernel
-of the port (MLA and MoE have none in either package).  Architectures
-whose family is not ported yet (encoder-decoder, vision and audio
-frontends) raise ``not yet ported``.
+of the port (MLA and MoE have none in either package).  Every
+registered architecture runs; an encoder-decoder's cache holds a
+``seq_len``-frame cross-attention memory, as the reference's does.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
@@ -49,7 +49,8 @@ def make_torch_runner(arch: str, seq_len: int = 128, *, device="cuda"):
     params = model.init(0, device=dev)
 
     def make_runner(b: int):
-        cache = model.init_cache(b, seq_len, device=dev)
+        cache = model.init_cache(b, seq_len,
+                                 seq_len if cfg.is_encdec else 0, device=dev)
         tokens = torch.zeros((b, 1), dtype=torch.long, device=dev)
         stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         if stream is not None:

@@ -1,7 +1,7 @@
-"""Models in PyTorch: the decoder families of the reference zoo (the
-attention family, DeepSeek MLA with dense and MoE FFNs, Mamba2 SSM and
-RG-LRU; encoder-decoder and frontends are not ported yet) and the micro
-models of the real execution plane."""
+"""Models in PyTorch: every family of the reference zoo (the attention
+family, DeepSeek MLA with dense and MoE FFNs, Mamba2 SSM, RG-LRU, the
+encoder-decoder and the vision prefix, whose frontends are stubs as in
+the reference) and the micro models of the real execution plane."""
 
 from .lm import (Model, build_model, decode_step, forward, init_cache,
                  init_params, prefill)

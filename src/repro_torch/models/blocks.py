@@ -1,20 +1,24 @@
-"""Decoder layer blocks in PyTorch and the block dispatcher.
+"""Layer blocks in PyTorch and the block dispatcher.
 
-A port of ``repro/models/blocks.py`` for every decoder kind: the global
-(ATTN) and sliding-window (LOCAL_ATTN) decoder blocks with qkv bias,
-qk-norm, sandwich norms, the full KV cache and the ring cache; the
-DeepSeek multi-head latent attention blocks (MLA with a dense MLP,
-MLA_MOE with the MoE of :mod:`.moe`) with their ``c_kv``/``k_rope``
-latent cache; the Mamba2 (SSM) and Griffin RG-LRU (RGLRU) blocks with
-their state and conv caches.  The encoder-decoder kinds (ENC/DEC) come
-with a later slice and raise ``NotImplementedError`` here, as does
-``cfg.moe_ep`` (expert parallelism).
+A port of ``repro/models/blocks.py`` for every kind: the global (ATTN)
+and sliding-window (LOCAL_ATTN) decoder blocks with qkv bias, qk-norm,
+sandwich norms, the full KV cache and the ring cache; the bidirectional
+encoder block (ENC, no cache) and the decoder block with
+cross-attention over the encoder's memory (DEC, whose cache adds the
+memory's ``cross_k``/``cross_v``); the DeepSeek multi-head latent
+attention blocks (MLA with a dense MLP, MLA_MOE with the MoE of
+:mod:`.moe`) with their ``c_kv``/``k_rope`` latent cache; the Mamba2
+(SSM) and Griffin RG-LRU (RGLRU) blocks with their state and conv
+caches.  ``cfg.moe_ep`` (expert parallelism) raises
+``NotImplementedError``.
 
 The functional contract is the reference's:
 
     params            = init_block(gen, cfg, kind, dense_layer=...)
-    cache             = init_block_cache(cfg, kind, batch, max_len, device)
-    x', cache'        = apply_block(params, x, cfg, kind, mode=..., ...)
+    cache             = init_block_cache(cfg, kind, batch, max_len,
+                                         memory_len, device)
+    x', cache'        = apply_block(params, x, cfg, kind, mode=..., ...,
+                                    memory=...)
 
 except that caches are updated **in place** (the reference's jitted
 decode donates its cache buffers to the same effect); the returned cache
@@ -24,11 +28,13 @@ is the same dict, written.
 through the CUDA flash-attention kernel, decode through the CUDA
 flash-decode kernel, and the SSD and RG-LRU scans of prefill and
 training through the CUDA ``ssd_scan`` and ``rglru_scan`` kernels
-(``repro_torch.kernels.ops``).  The reference's recurrent blocks ignore
-the flag, and so do both sides' MLA blocks: prefill runs
-``blocked_attention`` over the expanded K/V (a qk head dim of
-nope + rope, a v head dim of its own) and decode an absorbed softmax in
-latent space.
+(``repro_torch.kernels.ops``).  The flash kernel takes causal
+attention only, as the reference's does: the ENC block and the DEC
+cross-attention run ``blocked_attention`` whatever the flag says.  The
+reference's recurrent blocks ignore the flag, and so do both sides' MLA
+blocks: prefill runs ``blocked_attention`` over the expanded K/V (a qk
+head dim of nope + rope, a v head dim of its own) and decode an
+absorbed softmax in latent space.
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ import math
 
 import torch
 
-from ..configs.base import (ATTN, LOCAL_ATTN, MLA, MLA_MOE, RGLRU, SSM,
-                            ModelConfig)
+from ..configs.base import (ATTN, DEC, ENC, LOCAL_ATTN, MLA, MLA_MOE, RGLRU,
+                            SSM, ModelConfig)
 from .common import (apply_mlp, apply_norm, apply_rope, blocked_attention,
                      decode_attention, dense_init, init_mlp, init_norm,
                      rms_norm)
@@ -48,7 +54,7 @@ from .moe import apply_moe, init_moe
 from .rglru import apply_rglru_block, init_rglru_block, init_rglru_cache
 from .ssm import apply_ssm_block, init_ssm_block, init_ssm_cache
 
-_ATTN_FAMILY = (ATTN, LOCAL_ATTN)
+_ATTN_FAMILY = (ATTN, LOCAL_ATTN, ENC, DEC)
 _MLA_FAMILY = (MLA, MLA_MOE)
 _RECURRENT = (SSM, RGLRU)
 
@@ -124,6 +130,9 @@ def init_attn_block(gen, cfg: ModelConfig, kind: str) -> Dict:
     if cfg.post_norms:
         p["post_attn"] = init_norm(cfg.d_model, cfg.norm, dev)
         p["post_mlp"] = init_norm(cfg.d_model, cfg.norm, dev)
+    if kind == DEC:
+        p["pre_cross"] = init_norm(cfg.d_model, cfg.norm, dev)
+        p["cross"] = _init_attention(gen, cfg, dtype)
     return p
 
 
@@ -134,14 +143,16 @@ def _attn_cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 
 def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                    device=None) -> Dict:
+                    memory_len: int = 0, device=None) -> Dict:
     dtype = torch_dtype(cfg)
     Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
     L = _attn_cache_len(cfg, kind, max_len)
-    return {
-        "k": torch.zeros((batch, L, Hkv, Dh), dtype=dtype, device=device),
-        "v": torch.zeros((batch, L, Hkv, Dh), dtype=dtype, device=device),
-    }
+    lens = {"k": L, "v": L}
+    if kind == DEC:
+        lens.update(cross_k=memory_len, cross_v=memory_len)
+    return {name: torch.zeros((batch, n, Hkv, Dh), dtype=dtype,
+                              device=device)
+            for name, n in lens.items()}
 
 
 def _write_full_cache(cache_arr, new, pos: int) -> None:
@@ -169,8 +180,12 @@ def _prefill_ring(cache_arr, k_seq, window: int) -> None:
 
 def apply_attn_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
                      positions=None, pos: Optional[int] = None,
-                     cache: Optional[Dict] = None):
-    """x: (B, S, d). decode: S == 1 and `pos` is the int write position."""
+                     cache: Optional[Dict] = None, memory=None):
+    """x: (B, S, d). decode: S == 1 and `pos` is the int write position.
+    A DEC block reads ``memory`` (B, M, d), the encoder's output, in
+    train and prefill, and its cache's ``cross_k``/``cross_v`` in decode.
+    """
+    causal = kind != ENC
     window = cfg.sliding_window if kind == LOCAL_ATTN else 0
     res = x
     h = apply_norm(params["pre_attn"], x, cfg.norm, cfg.norm_eps)
@@ -205,14 +220,14 @@ def apply_attn_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
             attn = decode_attention(q, ck, cv, pos, window=window)
     else:
         q, k, v = _qkv(params["attn"], h, cfg, kind, positions)
-        if cfg.use_pallas_kernels:
+        if cfg.use_pallas_kernels and causal:
             from ..kernels import ops as kernel_ops
             attn = kernel_ops.flash_attention(
                 q.to(v.dtype), k.to(v.dtype), v, causal=True,
                 window=window, block_q=cfg.attn_block_q,
                 block_kv=cfg.attn_block_kv)
         else:
-            attn = blocked_attention(q, k, v, causal=True, window=window,
+            attn = blocked_attention(q, k, v, causal=causal, window=window,
                                      block_q=cfg.attn_block_q,
                                      block_kv=cfg.attn_block_kv)
         if mode == "prefill":
@@ -225,12 +240,14 @@ def apply_attn_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
                 _write_full_cache(cache["k"], k, 0)
                 _write_full_cache(cache["v"], v, 0)
 
-    wo = params["attn"]["wo"]
-    B, S = attn.shape[0], attn.shape[1]
-    out = attn.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = _out_proj(attn, params["attn"]["wo"])
     if cfg.post_norms:
         out = apply_norm(params["post_attn"], out, cfg.norm, cfg.norm_eps)
     x = res + out
+
+    if kind == DEC:
+        x = x + _cross_attention(params, x, cfg, mode=mode, cache=cache,
+                                 memory=memory)
 
     res = x
     h = apply_norm(params["pre_mlp"], x, cfg.norm, cfg.norm_eps)
@@ -238,6 +255,36 @@ def apply_attn_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
     if cfg.post_norms:
         out = apply_norm(params["post_mlp"], out, cfg.norm, cfg.norm_eps)
     return res + out, cache
+
+
+def _out_proj(attn, wo):
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    B, S = attn.shape[0], attn.shape[1]
+    return attn.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _cross_attention(params, x, cfg: ModelConfig, *, mode: str, cache,
+                     memory):
+    """A DEC block's cross-attention over the encoder's memory, without
+    its residual: no bias and no RoPE on q, k or v, non-causal.  Prefill
+    writes the memory's K/V into the cache; decode reads them back."""
+    if memory is None and mode != "decode":
+        raise ValueError("a DEC block needs the encoder's memory outside "
+                         "decode")
+    h = apply_norm(params["pre_cross"], x, cfg.norm, cfg.norm_eps)
+    cp = params["cross"]
+    q = _project(h, cp["wq"])
+    if mode == "decode":
+        mk, mv = cache["cross_k"], cache["cross_v"]
+    else:
+        mk, mv = _project(memory, cp["wk"]), _project(memory, cp["wv"])
+        if mode == "prefill":     # the self-attention checked the cache
+            _write_full_cache(cache["cross_k"], mk, 0)
+            _write_full_cache(cache["cross_v"], mv, 0)
+    attn = blocked_attention(q, mk, mv, causal=False,
+                             block_q=cfg.attn_block_q,
+                             block_kv=cfg.attn_block_kv)
+    return _out_proj(attn, cp["wo"])
 
 
 # ===================================================================== #
@@ -358,9 +405,7 @@ def apply_mla_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
             _write_full_cache(cache["c_kv"], c_kv, 0)
             _write_full_cache(cache["k_rope"], k_rope, 0)
 
-    wo = params["wo"]
-    B, S = attn.shape[0], attn.shape[1]
-    x = res + attn.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    x = res + _out_proj(attn, params["wo"])
     res = x
     h = apply_norm(params["pre_mlp"], x, cfg.norm, cfg.norm_eps)
     if "mlp" in params:
@@ -424,9 +469,11 @@ def init_block(gen, cfg: ModelConfig, kind: str, *,
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device=None) -> Optional[Dict]:
+                     memory_len: int = 0, device=None) -> Optional[Dict]:
+    if kind == ENC:
+        return None
     if kind in _ATTN_FAMILY:
-        return init_attn_cache(cfg, kind, batch, max_len, device)
+        return init_attn_cache(cfg, kind, batch, max_len, memory_len, device)
     if kind in _MLA_FAMILY:
         return init_mla_cache(cfg, batch, max_len, device)
     if kind == SSM:
@@ -437,10 +484,11 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def apply_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
-                positions=None, pos=None, cache=None):
+                positions=None, pos=None, cache=None, memory=None):
     if kind in _ATTN_FAMILY:
         return apply_attn_block(params, x, cfg, kind, mode=mode,
-                                positions=positions, pos=pos, cache=cache)
+                                positions=positions, pos=pos, cache=cache,
+                                memory=memory)
     if kind in _MLA_FAMILY:
         return apply_mla_block(params, x, cfg, kind, mode=mode,
                                positions=positions, pos=pos, cache=cache)

@@ -1,9 +1,12 @@
-"""Decoder LM assembly in PyTorch: embeddings → layer stack → head.
+"""Model assembly in PyTorch: embeddings → layer stack → head.
 
-A port of ``repro/models/lm.py`` for decoder-only configurations: the
-attention family, the DeepSeek MLA / MoE stacks (dense prefix layers
-included), Mamba2 SSM and RG-LRU.  Encoder-decoder and vision inputs
-come with a later slice and raise ``NotImplementedError``.
+A port of ``repro/models/lm.py`` for every family of the reference zoo:
+the attention family, the DeepSeek MLA / MoE stacks (dense prefix layers
+included), Mamba2 SSM, RG-LRU, the encoder-decoder (pattern ``(ENC,
+DEC)``: two stacks that share ``n_repeats``, the encoder over
+precomputed audio frames) and the vision prefix (precomputed patch
+embeddings in front of the text).  The frontends are stubs, as in the
+reference: :func:`input_specs` names the embeddings a batch carries.
 
 The layer stack is ``prefix + pattern × n_repeats + suffix``.  Both
 parameter layouts of the reference are accepted: unrolled (a list of
@@ -12,15 +15,19 @@ repeats, each a list of per-position block trees) and stacked
 (n_repeats, ...)), where a Python loop over the repeats takes the place
 of ``lax.scan`` and reads each repeat's slice as a view.
 
-Caches are written in place (see ``blocks``).  The public surface is
-:class:`Model` (build with :func:`build_model`):
+Caches are written in place (see ``blocks``); an encoder-decoder cache
+holds ``None`` at the ENC positions, and its DEC caches are written
+through the full-pattern structure, so nothing is merged back.  The
+public surface is :class:`Model` (build with :func:`build_model`):
 
     params                    = model.init(seed, device=...)
     hidden                    = model.forward(params, batch)   # (B,S,d)
     logits                    = model.logits(params, hidden)
     logits_last, cache        = model.prefill(params, batch)
     logits, cache             = model.decode_step(params, cache, tokens, pos)
-    cache                     = model.init_cache(batch, max_len, device=...)
+    cache                     = model.init_cache(batch, max_len,
+                                                 memory_len=..., device=...)
+    batch_specs               = model.input_specs(shape)   # meta tensors
 """
 
 from __future__ import annotations
@@ -32,19 +39,11 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .. import resolve_device
-from ..configs.base import MLA_MOE, ModelConfig
+from ..configs.base import DEC, ENC, MLA_MOE, ModelConfig, ShapeConfig
 from .blocks import apply_block, init_block, init_block_cache, torch_dtype
 from .common import apply_norm, embed_init, init_norm
 
 PyTree = Any
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models not yet ported")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.frontend.kind} frontends not yet "
-                                  "ported")
 
 
 def _tree_map(fn, tree):
@@ -81,7 +80,6 @@ def _stack(trees: List[PyTree]) -> PyTree:
 # --------------------------------------------------------------------- #
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
     """Seeded random parameters in the reference's tree layout."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg)
@@ -92,6 +90,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
                                     dtype=dtype)
+    if cfg.is_encdec:
+        params["enc_final_norm"] = init_norm(cfg.d_model, cfg.norm, dev)
     # prefix and suffix blocks take a dense MLP; pattern blocks do not
     params["prefix"] = [init_block(gen, cfg, k, dense_layer=True)
                         for k in cfg.prefix]
@@ -128,13 +128,14 @@ def active_param_count(cfg: ModelConfig, params: PyTree) -> int:
 # --------------------------------------------------------------------- #
 # caches
 # --------------------------------------------------------------------- #
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Dict:
-    _check_supported(cfg)
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               memory_len: int = 0, *, device="cuda") -> Dict:
+    """Zeroed caches of ``max_len`` slots; a DEC block's also holds the
+    K/V of ``memory_len`` encoder frames, and an ENC position is None."""
     dev = resolve_device(device)
 
     def one(kind):
-        return init_block_cache(cfg, kind, batch, max_len, dev)
+        return init_block_cache(cfg, kind, batch, max_len, memory_len, dev)
 
     cache: Dict = {
         "prefix": [one(k) for k in cfg.prefix],
@@ -155,21 +156,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # stack execution
 # --------------------------------------------------------------------- #
 def _run_stack(params_list, kinds, x, cfg, *, mode, positions=None,
-               pos=None, caches=None):
+               pos=None, caches=None, memory=None):
     for i, kind in enumerate(kinds):
         c = caches[i] if caches is not None else None
         x, _ = apply_block(params_list[i], x, cfg, kind, mode=mode,
-                           positions=positions, pos=pos, cache=c)
+                           positions=positions, pos=pos, cache=c,
+                           memory=memory)
     return x
 
 
 def _run_pattern(params, x, cfg: ModelConfig, *, mode, positions=None,
-                 pos=None, caches=None):
-    """Run the pattern × n_repeats segment (stacked or unrolled)."""
-    kinds = cfg.pattern
+                 pos=None, caches=None, memory=None, kinds=None,
+                 pattern_params=None):
+    """Run the pattern × n_repeats segment (stacked or unrolled).
+    ``kinds`` and ``pattern_params`` select one stack of an
+    encoder-decoder pattern (see :func:`_encdec_pattern_params`)."""
+    kinds = kinds if kinds is not None else cfg.pattern
+    stacked = (pattern_params if pattern_params is not None
+               else params["pattern"])
     if not kinds or cfg.n_repeats == 0:
         return x
-    stacked = params["pattern"]
     for r in range(cfg.n_repeats):
         if cfg.scan_layers:
             layer_params = [_tree_map(lambda a: a[r], p) for p in stacked]
@@ -179,7 +185,8 @@ def _run_pattern(params, x, cfg: ModelConfig, *, mode, positions=None,
             layer_params = stacked[r]
             layer_caches = caches[r] if caches is not None else None
         x = _run_stack(layer_params, kinds, x, cfg, mode=mode,
-                       positions=positions, pos=pos, caches=layer_caches)
+                       positions=positions, pos=pos, caches=layer_caches,
+                       memory=memory)
     return x
 
 
@@ -217,34 +224,88 @@ def _decoder_positions(x):
                         device=x.device)[None].expand(B, S)
 
 
+def _assemble_inputs(params, batch, cfg: ModelConfig):
+    """tokens (+ modality prefix) → embedded sequence (B, S, d)."""
+    x = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.frontend is not None and cfg.frontend.kind == "vision" \
+            and "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _positions_of(cfg: ModelConfig, kind: str):
+    return [j for j, k in enumerate(cfg.pattern) if k == kind]
+
+
+def _encdec_pattern_params(params, cfg: ModelConfig):
+    """Split the interleaved (ENC, DEC) pattern params into two stacks."""
+    enc_idx, dec_idx = _positions_of(cfg, ENC), _positions_of(cfg, DEC)
+    if cfg.scan_layers:
+        return ([params["pattern"][j] for j in enc_idx],
+                [params["pattern"][j] for j in dec_idx])
+    enc = [[layer[j] for j in enc_idx] for layer in params["pattern"]]
+    dec = [[layer[j] for j in dec_idx] for layer in params["pattern"]]
+    return enc, dec
+
+
+def _dec_caches(caches, cfg: ModelConfig):
+    """Select the DEC positions from a full-pattern cache structure (the
+    same dicts: a write through them lands in the full cache)."""
+    dec_idx = _positions_of(cfg, DEC)
+    if cfg.scan_layers:
+        return [caches[j] for j in dec_idx]
+    return [[layer[j] for j in dec_idx] for layer in caches]
+
+
+def encode(params, batch, cfg: ModelConfig):
+    """Encoder stack over precomputed frame embeddings (audio stub)."""
+    mem = batch["frames"].to(torch_dtype(cfg))
+    enc_params, _ = _encdec_pattern_params(params, cfg)
+    mem = _run_pattern(params, mem, cfg, mode="train",
+                       positions=_decoder_positions(mem), kinds=(ENC,),
+                       pattern_params=enc_params)
+    return apply_norm(params["enc_final_norm"], mem, cfg.norm, cfg.norm_eps)
+
+
+def _run_layers(params, x, cfg: ModelConfig, cache, **kw):
+    """prefix + pattern + suffix; an encoder-decoder runs its DEC stack
+    only (the encoder ran in :func:`encode`)."""
+    caches = cache or {}
+    x = _run_stack(params["prefix"], cfg.prefix, x, cfg,
+                   caches=caches.get("prefix"), **kw)
+    if cfg.is_encdec:
+        _, dec_params = _encdec_pattern_params(params, cfg)
+        pattern = caches.get("pattern")
+        x = _run_pattern(params, x, cfg, kinds=(DEC,),
+                         pattern_params=dec_params,
+                         caches=(_dec_caches(pattern, cfg)
+                                 if pattern is not None else None), **kw)
+    else:
+        x = _run_pattern(params, x, cfg, caches=caches.get("pattern"), **kw)
+    return _run_stack(params["suffix"], cfg.suffix, x, cfg,
+                      caches=caches.get("suffix"), **kw)
+
+
 def forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward → final hidden states (B, S, d)."""
-    _check_supported(cfg)
-    mode = "train"
-    x = embed_tokens(params, batch["tokens"], cfg)
-    positions = _decoder_positions(x)
-    x = _run_stack(params["prefix"], cfg.prefix, x, cfg, mode=mode,
-                   positions=positions)
-    x = _run_pattern(params, x, cfg, mode=mode, positions=positions)
-    x = _run_stack(params["suffix"], cfg.suffix, x, cfg, mode=mode,
-                   positions=positions)
+    memory = encode(params, batch, cfg) if cfg.is_encdec else None
+    x = _assemble_inputs(params, batch, cfg)
+    x = _run_layers(params, x, cfg, None, mode="train",
+                    positions=_decoder_positions(x), memory=memory)
     return apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
 
 
 def prefill(params, batch, cfg: ModelConfig, max_len: Optional[int] = None):
-    """Process the prompt, build the cache, return last-token logits."""
-    _check_supported(cfg)
-    mode = "prefill"
-    x = embed_tokens(params, batch["tokens"], cfg)
+    """Process the prompt, build the cache, return last-token logits.  An
+    encoder-decoder's cross cache holds its ``frames``' length."""
+    memory = encode(params, batch, cfg) if cfg.is_encdec else None
+    x = _assemble_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
-    cache = init_cache(cfg, B, max_len or S, device=x.device)
-    positions = _decoder_positions(x)
-    x = _run_stack(params["prefix"], cfg.prefix, x, cfg, mode=mode,
-                   positions=positions, caches=cache["prefix"])
-    x = _run_pattern(params, x, cfg, mode=mode, positions=positions,
-                     caches=cache["pattern"])
-    x = _run_stack(params["suffix"], cfg.suffix, x, cfg, mode=mode,
-                   positions=positions, caches=cache["suffix"])
+    cache = init_cache(cfg, B, max_len or S,
+                       memory.shape[1] if memory is not None else 0,
+                       device=x.device)
+    x = _run_layers(params, x, cfg, cache, mode="prefill",
+                    positions=_decoder_positions(x), memory=memory)
     hidden = apply_norm(params["final_norm"], x[:, -1:], cfg.norm,
                         cfg.norm_eps)
     return apply_head(params, hidden, cfg), cache
@@ -253,18 +314,43 @@ def prefill(params, batch, cfg: ModelConfig, max_len: Optional[int] = None):
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: int write position.  The
     cache is updated in place and returned."""
-    _check_supported(cfg)
-    mode = "decode"
-    pos = int(pos)
     x = embed_tokens(params, tokens, cfg)
-    x = _run_stack(params["prefix"], cfg.prefix, x, cfg, mode=mode,
-                   pos=pos, caches=cache["prefix"])
-    x = _run_pattern(params, x, cfg, mode=mode, pos=pos,
-                     caches=cache["pattern"])
-    x = _run_stack(params["suffix"], cfg.suffix, x, cfg, mode=mode,
-                   pos=pos, caches=cache["suffix"])
+    x = _run_layers(params, x, cfg, cache, mode="decode", pos=int(pos))
     hidden = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return apply_head(params, hidden, cfg), cache
+
+
+# --------------------------------------------------------------------- #
+# input specs (shapes and dtypes only: meta tensors, no allocation)
+# --------------------------------------------------------------------- #
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """The batch a step of ``shape`` takes, as meta tensors: the
+    reference's ``jax.ShapeDtypeStruct``s.  A vision prompt is
+    ``n_prefix_tokens`` patch embeddings then S − P tokens; an
+    encoder-decoder prompt is min(S, n_frames) frames and S tokens."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, torch_dtype(cfg)
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": spec((B, 1), i32)}
+    specs: Dict[str, torch.Tensor] = {}
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        P = cfg.frontend.n_prefix_tokens
+        specs["vision_embeds"] = spec((B, P, cfg.d_model), dt)
+        specs["tokens"] = spec((B, S - P), i32)
+    elif cfg.is_encdec:
+        n_frames = min(S, cfg.frontend.n_frames) if cfg.frontend else S
+        specs["frames"] = spec((B, n_frames, cfg.d_model), dt)
+        specs["tokens"] = spec((B, S), i32)
+    else:
+        specs["tokens"] = spec((B, S), i32)
+    if shape.kind == "train":
+        specs["labels"] = spec((B, S), i32)
+    return specs
 
 
 # --------------------------------------------------------------------- #
@@ -289,15 +375,20 @@ class Model:
     def decode_step(self, params, cache, tokens, pos):
         return decode_step(params, cache, tokens, pos, self.cfg)
 
-    def init_cache(self, batch: int, max_len: int, *, device="cuda"):
-        return init_cache(self.cfg, batch, max_len, device=device)
+    def init_cache(self, batch: int, max_len: int, memory_len: int = 0, *,
+                   device="cuda"):
+        return init_cache(self.cfg, batch, max_len, memory_len,
+                          device=device)
+
+    def input_specs(self, shape: ShapeConfig):
+        return input_specs(self.cfg, shape)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    _check_supported(cfg)
     return Model(cfg)
 
 
 __all__ = ["Model", "active_param_count", "apply_head", "build_model",
-           "decode_step", "embed_tokens", "forward", "head_weights",
-           "init_cache", "init_params", "param_count", "prefill"]
+           "decode_step", "embed_tokens", "encode", "forward",
+           "head_weights", "init_cache", "init_params", "input_specs",
+           "param_count", "prefill"]

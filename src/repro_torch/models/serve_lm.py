@@ -16,7 +16,17 @@ LLM inference:
 The kernels are those of the configuration's blocks: an MLA
 configuration (deepseek) runs blocked prefill attention, an absorbed
 latent decode and its MoE in plain PyTorch and launches no kernel, as
-the reference's MLA blocks ignore ``use_pallas_kernels``.
+the reference's MLA blocks ignore ``use_pallas_kernels``; an
+encoder-decoder's encoder and cross-attention run blocked attention,
+and only its decoder's self-attention reaches the kernels.
+
+A prompt batch carries every input :func:`~.lm.input_specs` names for
+the configuration at the cell's ⟨b, seq-bucket⟩: seeded tokens, and for
+a frontend seeded standard-normal embeddings in the model dtype (a
+vision prompt is ``n_prefix_tokens`` patches then text, an audio prompt
+min(s, n_frames) encoder frames and s decoder tokens), so a prompt
+fills s positions.  The reference's engine passes tokens only; its
+``Model.prefill`` takes the other inputs.
 
 The engine owns a KV-cache pool: each decode cell ⟨b⟩ keeps a resident
 ⟨cache, position⟩ it advances every step.  Every cell is built and run
@@ -43,10 +53,11 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..configs.base import ShapeConfig
 from ..configs.gemma3_1b import GEMMA3_1B
 from ..core.knapsack import next_power_of_two
 from ..kernels import build as kernel_build
-from .lm import Model, build_model
+from .lm import Model, build_model, input_specs
 
 LM_MODELS = ("lm-tiny",)
 
@@ -106,11 +117,15 @@ class LmEngine:
     # functional surface (differential tests)
     # ------------------------------------------------------------------ #
     @torch.no_grad()
-    def prefill(self, tokens):
-        """(logits_last (B,1,V), cache) for a (B, S) prompt batch."""
-        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        return self.model.prefill(self.params, {"tokens": tokens},
-                                  max_len=self.max_seq)
+    def prefill(self, tokens, **inputs):
+        """(logits_last (B,1,V), cache) for a prompt batch: (B, S) tokens
+        and the configuration's other inputs (``vision_embeds``,
+        ``frames``) by name."""
+        batch = {name: torch.as_tensor(x, device=self.device)
+                 for name, x in inputs.items()}
+        batch["tokens"] = torch.as_tensor(tokens, dtype=torch.long,
+                                          device=self.device)
+        return self.model.prefill(self.params, batch, max_len=self.max_seq)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
@@ -125,10 +140,25 @@ class LmEngine:
         """Pow2 seq bucket for a prompt length, clamped to max_seq."""
         return min(next_power_of_two(max(1, prompt_len)), self.max_seq)
 
-    def _sample_tokens(self, b: int, s: int):
-        tokens = torch.randint(0, self.cfg.vocab_size, (b, s),
-                               generator=self._gen, dtype=torch.long)
-        return tokens.to(self.device)
+    def _sample_batch(self, b: int, s: int) -> Dict[str, torch.Tensor]:
+        """A seeded prompt batch of b sequences filling s positions, with
+        the leaves :func:`~.lm.input_specs` names."""
+        fe = self.cfg.frontend
+        if fe is not None and fe.kind == "vision" and s <= fe.n_prefix_tokens:
+            raise ValueError(f"a {s}-position prompt leaves no text after "
+                             f"{fe.n_prefix_tokens} patch embeddings")
+        specs = input_specs(self.cfg, ShapeConfig(
+            "serve", seq_len=s, global_batch=b, kind="prefill"))
+        batch = {}
+        for name, spec in specs.items():
+            if spec.dtype.is_floating_point:
+                x = torch.randn(spec.shape, generator=self._gen).to(
+                    spec.dtype)
+            else:
+                x = torch.randint(0, self.cfg.vocab_size, spec.shape,
+                                  generator=self._gen, dtype=torch.long)
+            batch[name] = x.to(self.device)
+        return batch
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -163,8 +193,8 @@ class LmEngine:
         key = (PHASE_PREFILL, b, s)
         run = self._runners.get(key)
         if run is None:
-            tokens = self._sample_tokens(b, s)
-            self._sync()            # tokens are ready before any cell stream
+            batch = self._sample_batch(b, s)
+            self._sync()            # inputs are ready before any cell stream
             # Cells ⟨t, b⟩ with the same b share this runner, and the plane
             # may run several of them at once, each on its worker's thread.
             # Each thread gets its own stream, so its synchronize() waits
@@ -177,7 +207,7 @@ class LmEngine:
                 if stream is None:
                     stream = local.stream = engine._cell_stream()
                 with engine._on(stream):
-                    engine.prefill(tokens)
+                    engine.prefill(**batch)
                 engine._wait(stream)
 
             run()                                        # build + warm here
@@ -195,10 +225,10 @@ class LmEngine:
         if run is None:
             s0 = self.default_seq_bucket
             stream = self._cell_stream()
-            prompt = self._sample_tokens(b, s0)
+            prompt = self._sample_batch(b, s0)
             self._sync()
             with self._on(stream):
-                _, cache = self.prefill(prompt)
+                _, cache = self.prefill(**prompt)
                 tokens = torch.zeros((b, 1), dtype=torch.long,
                                      device=self.device)
             self._resident[b] = (cache, s0)

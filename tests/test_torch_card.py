@@ -7,8 +7,9 @@ of the reference package: the machine with the card has neither.  Every
 test takes the ``cuda`` fixture, which skips without a card; there, run
 ``python -m pytest tests/test_torch_card.py -q``.  Grids and tolerances
 are ``tests/test_kernels.py``'s (atol = rtol = 2e-5 fp32, 2e-2 bf16),
-plus head dim 8, the serving shapes, and attn-tiny's flash shapes (fp32,
-head dim 16, S = 16, 8, 4, B up to 256).
+plus head dim 8, the serving shapes (head dim 64 at GQA groups 1 and 7
+for seamless-m4t-medium and internvl2-1b), and attn-tiny's flash
+shapes (fp32, head dim 16, S = 16, 8, 4, B up to 256).
 """
 
 import numpy as np
@@ -175,6 +176,9 @@ FLASH_ROUTE_GRID = [
     (1, 128, 16, 1, 64, 0, 32),
     (1, 512, 4, 1, 256, 0, 512),     # gemma3-1b, B = 1
     (1, 512, 16, 1, 256, 2048, 512),  # recurrentgemma-9b, B = 1
+    (1, 512, 16, 16, 64, 0, 512),    # seamless-m4t-medium decoder
+    (1, 512, 14, 2, 64, 0, 512),     # internvl2-1b: a group of 7
+    (2, 100, 14, 2, 64, 0, 512),     # group 7, ragged (padding path)
 ]
 
 
@@ -237,6 +241,11 @@ DECODE_ROUTE_GRID = [(*case, None) for case in DECODE_GRID] + [
     (4, 1024, 4, 1, 256, (520,) * 4),     # gemma3-1b global cache
     (4, 512, 4, 1, 256, (512,) * 4),      # gemma3-1b ring cache, full
     (1, 1024, 16, 1, 256, (520,)),        # recurrentgemma-9b
+    # seamless-m4t-medium (16 heads on 16) and internvl2-1b (14 on 2, a
+    # group of 7), head dim 64
+    (4, 1024, 16, 16, 64, DECODE_EDGES + (1024,)),
+    (4, 1024, 14, 2, 64, DECODE_EDGES + (1024,)),
+    (4, 1024, 14, 2, 64, (520,) * 4),
 ]
 
 

@@ -267,5 +267,3 @@ def test_unported_kinds_raise():
     with pytest.raises(NotImplementedError, match="moe_ep not yet ported"):
         apply_block(params, x, cfg, MLA_MOE, mode="train",
                     positions=torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_model(get_config("seamless-m4t-medium").reduced())

@@ -4,8 +4,8 @@
 decode step per batch size, drives the simulated Packrat server through
 a rate step, completes every request and prints the reference's three
 kinds of line (``repro/launch/serve.py``: the request count, the
-latency summary, one line per reconfiguration).  Architectures whose
-family is not ported yet raise ``not yet ported``.
+latency summary, one line per reconfiguration).  The encoder-decoder
+and vision-prefix families run the same loop.
 """
 
 import re
@@ -71,9 +71,18 @@ def test_serve_runs_reduced_deepseek_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.main(["--arch", arch, "--device", "cpu"])
+def test_unported_families_raise(arch, capsys):
+    """The encoder-decoder (its cache holds a seq_len-frame cross
+    memory) and the vision-prefix families serve: every request
+    completes through the whole loop."""
+    assert serve.main(["--arch", arch, "--duration", "2",
+                       "--rate-step", "1", "--units", "4",
+                       "--initial-batch", "2", "--max-batch", "4",
+                       "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    got, requests, completed = LINES["count"].match(lines[0]).groups()
+    assert got == arch and int(requests) == int(completed) > 0
+    assert LINES["latency"].match(lines[1])
 
 
 def test_serve_raises_without_cuda_unless_asked_for_cpu():
