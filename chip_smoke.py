@@ -5,7 +5,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device, ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``) and no
 network.  Six LM serving paths, each a registered configuration at
 full width with seeded random weights, the micro models of the real
-plane, and the kernels each one runs:
+plane, full-width gemma3-1b training, and the kernels each one runs:
 
 * gemma3-1b — ``flash_attention`` (prefill), ``decode_attention`` (decode);
 * mamba2-130m — ``ssd_scan`` (prefill);
@@ -116,8 +116,44 @@ non-zero:
    ``examples/serve_online.py``'s arguments over 8 s (rate step at 4 s)
    on the card: every request must complete; the reduced model runs no
    kernel of the port, as in the reference.
+9. **train** — training, with ``use_pallas_kernels`` off as the
+   reference must (the kernels have no backward):
+   * reduced gemma3-1b (8 layers, d_model 64, vocab 1024) in fp32, two
+     steps on the card against the CPU from the same weights and batch:
+     each loss within 1e-5 relative and each gradient leaf within 1e-4
+     of its largest |g|, the card's ``make_train_step`` repeating its
+     own ``value_and_grad`` loss bit for bit, and the parameters and
+     moments after two steps within 1e-6 of the CPU's AdamW fed the
+     card's gradients;
+   * full-width gemma3-1b (26 layers, vocab 262,144, bf16, no cut) at
+     B = 4, S = 512 on the synthetic corpus with the launcher's AdamW
+     (lr 1e-3, warmup 20, fp32 moments): 3 steps through
+     ``repro_torch.launch.train.main``, then the launcher's whole
+     schedule (100 steps: warmup to the peak, cosine decay to a tenth of
+     it) through ``train`` with the same settings (the launcher's
+     printed losses must be ``train``'s first three); each step's loss,
+     grad norm, lr, wall ms and tokens/s, a held-out batch's loss every
+     10 steps (the same corpus, the stream of a second host), the peak
+     device memory; every loss and grad norm finite, the last loss
+     below the first by :data:`TRAIN_MARGIN`, and so the held-out loss
+     under the trained weights below its loss under the initial ones;
+   * an async checkpoint at step 50 (written while steps 51-100 run),
+     restored into a fresh tree bit for bit, and a resume to step 100
+     whose losses equal the uninterrupted run's;
+   * from the trained state, on a held-out batch: a ``remat=True`` and
+     a ``grad_accum=2`` step beside the plain one (loss and grad norm
+     within bf16's 2e-2); the loss and logits through the flash kernel
+     (every layer's attention, under ``torch.no_grad()``) against the
+     plain path, within the model phase's bf16 bound (twice the plain
+     path's distance from fp32, floor 2e-2), its launches counted as the
+     ``train-eval`` path; a train step with the kernels on raises the
+     wrappers' ``RuntimeError`` before any launch;
+   * one full-width step traced: forward + backward, the AdamW update
+     and the whole step (wall, device busy, idle share, launches, top
+     kernels).
 
-Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
+Then the card's name and power limit, the ``{"kernels": [...]}`` line
+(``launches_by_path`` includes ``train-eval``) and,
 last, ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 2 (a quick check after editing a kernel).
 """
@@ -127,6 +163,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -189,6 +226,20 @@ MICRO_SECONDS, MICRO_UNITS, MICRO_BATCHES = 4.0, 4, (1, 256)
 SERVE_ONLINE_ARGS = ["--arch", "gemma3-1b", "--duration", "8",
                      "--rate-step", "4", "--initial-batch", "8",
                      "--max-batch", "32"]
+# train phase: full-width gemma3-1b by the launcher's flags over the
+# launcher's whole schedule (AdamW lr 1e-3, warmup 20, cosine decay to step
+# 100, fp32 moments), an async checkpoint at step 50, resumed to 100; the
+# last of the 100 losses must be below the first by TRAIN_MARGIN nats, and
+# so must a held-out batch's loss under the trained weights below its loss
+# under the initial ones (printed every TRAIN_EVAL_EVERY steps); the
+# launcher itself runs the first TRAIN_LAUNCHER_STEPS of them
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_SAVE_AT = "gemma3-1b", 100, 50
+TRAIN_EVAL_EVERY, TRAIN_LAUNCHER_STEPS = 10, 3
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "512",
+              "--lr", "1e-3", "--seed", "0", "--device", "cuda"]
+TRAIN_MARGIN = 0.02
+# the card-against-CPU check: gemma3-1b reduced to 8 layers, d_model 64
+TRAIN_REDUCED = {"n_repeats": 1, "vocab_size": 1024}
 # (row, source, the TPU kernel it replaces): one row per kernel, and the
 # flash kernel's CUDA-core route (flash_fwd_kernel, attn-tiny's path) in
 # a row of its own; each row's launches are those of its headline's route
@@ -270,6 +321,10 @@ def main(argv=None) -> int:
         emit({"phase": "micro", **micro_rep})
     emit({"phase": "launcher", **phase_launcher()})
     emit({"phase": "serve_online", **phase_serve_online(torch)})
+    train_rep = phase_train(torch)
+    _tally(train_rep["eval"]["launches_by_route"], "train-eval", launches,
+           by_path)
+    emit({"phase": "train", **train_rep})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1148,8 +1203,24 @@ def _trace_report(prof, wall_ms, enqueue_ms, steps):
                 for name, ms in host_ops.most_common(TRACE_TOP)}}
 
 
-def phase_trace(torch, name: str):
+def _traced(torch, fn, steps):
+    """One untraced run of ``fn`` (``steps`` steps) on the host clock,
+    then one under ``torch.profiler`` (:func:`_trace_report`)."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _trace_report(prof, wall * 1e3, enqueue * 1e3, steps)
+
+
+def phase_trace(torch, name: str):
     from repro_torch.models.lm import decode_step, init_params, prefill
     dev = torch.device("cuda")
     cfg = _config(name).with_overrides(use_pallas_kernels=True)  # bf16
@@ -1165,17 +1236,7 @@ def phase_trace(torch, name: str):
                         cfg)
 
     def traced(fn, steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        enqueue = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return _trace_report(prof, wall * 1e3, enqueue * 1e3, steps)
+        return _traced(torch, fn, steps)
 
     with torch.no_grad():
         params = init_params(cfg, 0, device=dev)
@@ -1472,6 +1533,372 @@ def phase_serve_online(torch):
         raise AssertionError("serve_online: not every request completed")
     # reduced configs keep use_pallas_kernels off, as in the reference
     _check_launches("serve_online", counts, cpu_calls, {})
+    return rep
+
+
+# --------------------------------------------------------------------- #
+# phase 9: training — gemma3-1b at full width through the launcher
+# --------------------------------------------------------------------- #
+def _bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bits (bf16 and fp32 compared as integers)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return bool(torch.equal(a, b))
+
+
+def _leaf_errors(torch, got, want):
+    """Leaf name -> max |got - want| over max |want|, for two trees of
+    one structure (compared on ``got``'s device)."""
+    from repro_torch.training.tree import leaves_with_path
+    out = {}
+    for (name, g), (_, w) in zip(leaves_with_path(got),
+                                 leaves_with_path(want)):
+        w = w.to(g.device).float()
+        out[name] = float((g.float() - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+    return out
+
+
+def _train_card_vs_cpu(torch):
+    """Reduced gemma3-1b in fp32, the same weights and batch on the card
+    and the CPU, two steps: each step's loss (1e-5 relative) and gradient
+    leaves (1e-4 of each leaf's largest |g|) against the CPU's at the same
+    point; the card's ``make_train_step`` against its own
+    ``value_and_grad`` (the same loss, bit for bit); and the parameters
+    and moments after the two steps against the CPU's AdamW fed the
+    card's gradients (1e-6 of each leaf's largest value: rounding only,
+    since AdamW turns a gradient within rounding of 0 into a step of
+    either sign, the two sides' own gradients are not fed to it)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import batches_for_model
+    from repro_torch.models.lm import init_params, param_count
+    from repro_torch.training import (AdamWConfig, TrainConfig, adamw_update,
+                                      init_adamw, make_train_step)
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.training.tree import tree_map
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH).reduced(dtype="float32", **TRAIN_REDUCED)
+    shape = ShapeConfig("t", seq_len=128, global_batch=2, kind="train")
+    tcfg = TrainConfig(adamw=AdamWConfig(learning_rate=1e-3, warmup_steps=1))
+    batch_h = next(batches_for_model(cfg, shape, seed=5))
+    batch_c = {k: v.to(dev) for k, v in batch_h.items()}
+    ph = init_params(cfg, 0, device="cpu")
+    pc = tree_map(lambda t: t.to(dev), ph)
+    sh, sc = init_adamw(tcfg.adamw, ph), init_adamw(tcfg.adamw, pc)
+    step = make_train_step(cfg, tcfg)
+    rep = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": param_count(ph),
+           "batch": [2, 128], "steps": []}
+    ok = True
+    for _ in range(2):
+        lc, gc = value_and_grad(pc, batch_c, cfg)
+        lh, gh = value_and_grad(ph, batch_h, cfg)
+        loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+        grad_errs = _leaf_errors(torch, gc, gh)
+        worst = max(grad_errs, key=grad_errs.get)
+        pc, sc, mc = step(pc, sc, batch_c)
+        ph, sh, _ = adamw_update(tcfg.adamw, tree_map(lambda t: t.cpu(), gc),
+                                 sh, ph)
+        same = float(mc["loss"]) == float(lc)
+        rep["steps"].append({"loss_card": float(lc), "loss_cpu": float(lh),
+                             "loss_rel_err": loss_err,
+                             "grad_worst": [worst, grad_errs[worst]],
+                             "step_loss_equals_value_and_grad": same})
+        ok &= loss_err <= 1e-5 and grad_errs[worst] <= 1e-4 and same
+    errs = {**_leaf_errors(torch, pc, ph),
+            **{"mu" + k: v for k, v in _leaf_errors(torch, sc.mu,
+                                                     sh.mu).items()},
+            **{"nu" + k: v for k, v in _leaf_errors(torch, sc.nu,
+                                                     sh.nu).items()}}
+    worst = max(errs, key=errs.get)
+    rep["after_two_steps_worst"] = [worst, errs[worst]]
+    rep["tolerance"] = {"loss": 1e-5, "grad": 1e-4, "params": 1e-6}
+    rep["ok"] = bool(ok and errs[worst] <= 1e-6)
+    return rep
+
+
+def phase_train(torch):
+    """gemma3-1b at full width (26 layers, vocab 262,144, bf16) trained by
+    the launcher's settings; see the module docstring, phase 9."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    from repro_torch.data import DataConfig, batches_for_model, token_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cross_entropy_loss
+    from repro_torch.models.lm import (apply_head, forward, head_weights,
+                                       param_count)
+    from repro_torch.training import (Checkpointer, init_adamw,
+                                      make_train_step, train)
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_loop import loss_fn, value_and_grad
+    from repro_torch.training.tree import leaves_with_path, tree_map
+    dev = torch.device("cuda")
+    failures = []
+    rep = {"config": TRAIN_ARCH,
+           "argv": TRAIN_ARGV + ["--steps", str(TRAIN_STEPS)]}
+
+    # 1. card against CPU, reduced, fp32
+    t0 = time.perf_counter()
+    rep["card_vs_cpu"] = _train_card_vs_cpu(torch)
+    rep["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    if not rep["card_vs_cpu"]["ok"]:
+        failures.append("the card's reduced fp32 steps differ from the CPU's")
+
+    # 2. the launcher, as a user runs it, for the first steps of the
+    # schedule (decay_steps is max(steps, 100): the same schedule)
+    argv = TRAIN_ARGV + ["--steps", str(TRAIN_LAUNCHER_STEPS)]
+    args = launch_train.parse_args(rep["argv"])
+    cfg, shape, tcfg = launch_train.configure(args)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(argv + ["--log-every", "1"])
+    rep["launcher_seconds"] = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    launcher_losses = [ln.split("loss=")[1].split()[0] for ln in lines
+                       if "step=" in ln]
+    if rc != 0 or len(launcher_losses) != TRAIN_LAUNCHER_STEPS:
+        failures.append(f"the launcher ran {len(launcher_losses)} steps")
+    if launch_train.configure(launch_train.parse_args(argv))[2] != tcfg:
+        failures.append("the launcher's short run has another schedule")
+    _free(torch)
+
+    # 3. the whole schedule through train(), a held-out loss every
+    # TRAIN_EVAL_EVERY steps, an async checkpoint at TRAIN_SAVE_AT written
+    # while the steps after it run
+    model = build_model(cfg)
+    tokens = shape.global_batch * shape.seq_len
+    log = []
+    clock = [0.0]
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        row = {"step": step + 1, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+               "wall_ms": (now - clock[0]) * 1e3}
+        row["tokens_per_s"] = tokens / (row["wall_ms"] / 1e3)
+        log.append(row)
+        print(f"chip_smoke: train step={row['step']} loss={row['loss']:.6f}"
+              f" grad_norm={row['grad_norm']:.4f} lr={row['lr']:.3e} "
+              f"wall_ms={row['wall_ms']:.2f} "
+              f"tok/s={row['tokens_per_s']:.0f}", flush=True)
+        clock[0] = time.perf_counter()
+
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = Checkpointer(str(ckdir), async_save=True, keep=1)
+    data = batches_for_model(cfg, shape, seed=args.seed)
+    # held out: the same corpus (its seed), the stream of a second host
+    held = {k: v.to(dev) for k, v in next(token_batches(DataConfig(
+        cfg.vocab_size, shape.seq_len, shape.global_batch, args.seed,
+        host_id=1, host_count=2))).items()}
+    p_end = model.init(args.seed, device=dev)     # what train() makes
+    o_end = None
+    held_losses = []
+
+    def held_out(step):
+        with torch.no_grad():
+            held_losses.append({"step": step,
+                                "loss": float(loss_fn(p_end, held, cfg))})
+        print(f"chip_smoke: train held-out step={step} "
+              f"loss={held_losses[-1]['loss']:.6f}", flush=True)
+
+    held_out(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    assert TRAIN_SAVE_AT % TRAIN_EVAL_EVERY == 0
+    for stop in range(TRAIN_EVAL_EVERY, TRAIN_STEPS + 1, TRAIN_EVAL_EVERY):
+        clock[0] = time.perf_counter()
+        p_end, o_end, _ = train(model, tcfg, data, steps=stop, device=dev,
+                                params=p_end, opt_state=o_end,
+                                on_step=on_step)
+        if stop == TRAIN_SAVE_AT:
+            p_save, o_save = p_end, o_end
+            t0 = time.perf_counter()
+            ck.save(stop, p_save, o_save)
+            rep["checkpoint_save_call_ms"] = (time.perf_counter() - t0) * 1e3
+        held_out(stop)
+    t0 = time.perf_counter()
+    ck.wait()
+    rep["checkpoint_wait_after_ms"] = (time.perf_counter() - t0) * 1e3
+    rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rep["params"] = param_count(p_end)
+    rep["layers"] = cfg.n_layers
+    rep["steps"] = log
+    rep["checkpoint_gib"] = sum(f.stat().st_size for f in ckdir.rglob("*")
+                                if f.is_file()) / 2**30
+    losses = [r["loss"] for r in log]
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                 for r in log)
+    rep["loss_drop"] = losses[0] - losses[-1]
+    rep["loss_margin"] = TRAIN_MARGIN
+    if not (finite and len(losses) == TRAIN_STEPS
+            and rep["loss_drop"] >= TRAIN_MARGIN):
+        failures.append(f"losses {losses[0]} -> {losses[-1]}: not finite "
+                        f"or fell by less than {TRAIN_MARGIN}")
+    rep["launcher_matches_train"] = launcher_losses == [
+        f"{x:.4f}" for x in losses[:TRAIN_LAUNCHER_STEPS]]
+    if not rep["launcher_matches_train"]:
+        failures.append("the launcher's losses are not train()'s")
+
+    rep["held_out_loss"] = held_losses
+    held_drop = held_losses[0]["loss"] - held_losses[-1]["loss"]
+    if not held_drop >= TRAIN_MARGIN:
+        failures.append(f"the held-out loss went {held_losses[0]['loss']} "
+                        f"-> {held_losses[-1]['loss']}: it fell by less "
+                        f"than {TRAIN_MARGIN}")
+
+    # 4. the held-out batch: remat and grad_accum=2 steps beside the
+    # plain step, from the trained state
+    variants = {"plain": (cfg, tcfg),
+                "remat": (cfg.with_overrides(remat=True), tcfg),
+                "grad_accum=2": (cfg, dataclasses.replace(tcfg,
+                                                          grad_accum=2))}
+    rep["variants"] = {}
+    base = None
+    for label, (vcfg, vtcfg) in variants.items():
+        step_fn = make_train_step(vcfg, vtcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p1, _, m = step_fn(p_end, o_end, held)
+        torch.cuda.synchronize()
+        row = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "wall_ms": (time.perf_counter() - t0) * 1e3,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if base is None:
+            base = (row, p1)
+        else:
+            row["loss_rel_err"] = abs(row["loss"] - base[0]["loss"]) / abs(
+                base[0]["loss"])
+            row["grad_norm_rel_err"] = abs(
+                row["grad_norm"] - base[0]["grad_norm"]) / base[0][
+                    "grad_norm"]
+            row["params_bit_identical"] = all(
+                _bits_equal(torch, a, b) for (_, a), (_, b) in zip(
+                    leaves_with_path(p1), leaves_with_path(base[1])))
+            if not (row["loss_rel_err"] <= TOL["bfloat16"][0]
+                    and row["grad_norm_rel_err"] <= TOL["bfloat16"][0]):
+                failures.append(f"the {label} step differs from the plain "
+                                f"step: {row}")
+        rep["variants"][label] = row
+        del p1
+    base = None
+    _free(torch)
+
+    # 5. the trained weights evaluated through the flash kernel, under
+    # no_grad, against the plain path; and a step through it raises
+    kcfg = cfg.with_overrides(use_pallas_kernels=True)
+    labels = held["labels"]
+
+    def evaluate(c, params):
+        hidden = forward(params, held, c)
+        logits = apply_head(params, hidden, c)
+        loss = cross_entropy_loss(hidden, head_weights(params, c), labels,
+                                  softcap=c.logit_softcap)
+        return logits, float(loss)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    with torch.no_grad():
+        _reset_counts()
+        k16, loss_k = evaluate(kcfg, p_end)
+        torch.cuda.synchronize()
+        counts, cpu_calls = _counts()
+        p16, loss_p = evaluate(cfg, p_end)
+        f32, loss_f = evaluate(cfg.with_overrides(dtype="float32"),
+                               tree_map(lambda t: t.float(), p_end))
+        err_k, err_p, err_kp = rel(k16, f32), rel(p16, f32), rel(k16, p16)
+        del k16, p16, f32
+    _free(torch)
+    tol16 = max(2.0 * err_p, TOL["bfloat16"][0])
+    rep["eval"] = {"batch": [shape.global_batch, shape.seq_len],
+                   "loss": {"kernels": loss_k, "plain": loss_p,
+                            "fp32": loss_f},
+                   "rel_err_kernels_vs_fp32": err_k,
+                   "rel_err_plain_vs_fp32": err_p,
+                   "rel_err_kernels_vs_plain": err_kp, "tolerance": tol16,
+                   "launches_by_route": counts, "cpu_calls": cpu_calls}
+    if not err_k <= tol16:
+        failures.append(f"train-eval logits through the kernel differ: "
+                        f"{err_k} > {tol16}")
+    _check_launches("train-eval", counts, cpu_calls,
+                    {"flash_attention": "tensor_core"})
+    _reset_counts()
+    try:
+        make_train_step(kcfg, tcfg)(p_end, o_end, held)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    launched = sum(n for by_route in _counts()[0].values()
+                   for n in by_route.values())
+    rep["kernel_step_raises"] = raised
+    if raised is None or "no backward" not in raised or launched:
+        failures.append("a train step through the kernels did not raise "
+                        f"before launching ({raised!r}, {launched})")
+    _free(torch)
+
+    # 6. one full-width step traced: forward + backward, the AdamW
+    # update, the whole step
+    grads = value_and_grad(p_end, held, cfg)[1]
+    step_fn = make_train_step(cfg, tcfg)
+    rep["trace"] = {
+        "forward_backward": _traced(
+            torch, lambda: value_and_grad(p_end, held, cfg), 1),
+        "adamw_update": _traced(
+            torch, lambda: adamw_update(tcfg.adamw, grads, o_end, p_end), 1),
+        "step": _traced(torch, lambda: step_fn(p_end, o_end, held), 1)}
+    del grads, p_end, o_end
+    _free(torch)
+
+    # 7. restore step TRAIN_SAVE_AT into a fresh tree, bit for bit, and
+    # resume to TRAIN_STEPS
+    fresh = model.init(1, device=dev)
+    t0 = time.perf_counter()
+    restored = ck.restore(like={"params": fresh,
+                                "opt_state": init_adamw(tcfg.adamw, fresh)})
+    rep["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    del fresh
+    want = leaves_with_path({"params": p_save, "opt_state": o_save})
+    got = leaves_with_path(restored["tree"])
+    rep["restore_bit_exact"] = restored["step"] == TRAIN_SAVE_AT and [
+        n for n, _ in got] == [n for n, _ in want] and all(
+        _bits_equal(torch, a, b) for (_, a), (_, b) in zip(got, want))
+    del p_save, o_save, want, got
+    _free(torch)
+    if not rep["restore_bit_exact"]:
+        failures.append("the restored checkpoint differs from step "
+                        f"{TRAIN_SAVE_AT}")
+    data = batches_for_model(cfg, shape, seed=args.seed)
+    for _ in range(TRAIN_SAVE_AT):
+        next(data)                  # the batches the steps before it took
+    resumed = []
+    train(model, tcfg, data, steps=TRAIN_STEPS, device=dev,
+          params=restored["tree"]["params"],
+          opt_state=restored["tree"]["opt_state"],
+          on_step=lambda s, m: resumed.append(float(m["loss"])))
+    del restored
+    shutil.rmtree(ckdir, ignore_errors=True)
+    _free(torch)
+    rep["resume_losses"] = resumed
+    rep["resume_repeats_steps"] = resumed == losses[TRAIN_SAVE_AT:]
+    if not rep["resume_repeats_steps"]:
+        failures.append(f"the resumed steps {TRAIN_SAVE_AT + 1}-"
+                        f"{TRAIN_STEPS} differ from the uninterrupted run's")
+    if failures:
+        emit({"phase": "train", **rep})
+        raise AssertionError("train: " + "; ".join(failures))
     return rep
 
 

@@ -1,4 +1,5 @@
-"""Shared model components in PyTorch: norms, RoPE, MLPs, attention.
+"""Shared model components in PyTorch: norms, RoPE, MLPs, attention and
+the cross-entropy loss.
 
 A port of ``repro/models/common.py``.  Layouts are the reference's
 (activations (B, S, d), heads (B, S, H, D), weights stored as the
@@ -148,7 +149,18 @@ def apply_mlp(params, x, act: str, *, gated: bool):
 # attention
 # ----------------------------------------------------------------------- #
 def _repeat_kv(k, n_rep: int):
-    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
+    """Repeat each KV head n_rep times along axis 2 (``jnp.repeat``).
+
+    Built as expand + reshape, not ``repeat_interleave``: the values are
+    the same, but the backward of ``repeat_interleave`` on CUDA adds the
+    n_rep gradients with atomics, in no fixed order, so two identical
+    train steps could differ in the last bit; this backward is a plain
+    sum over the expanded axis."""
+    if n_rep == 1:
+        return k
+    B, S, Hkv, D = k.shape
+    return k[:, :, :, None].expand(B, S, Hkv, n_rep, D).reshape(
+        B, S, Hkv * n_rep, D)
 
 
 def _attend_tile(q, k, v, scale, bias):
@@ -275,3 +287,40 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
     pg = p.reshape(B, Hkv, rep, 1, S)
     out = torch.einsum("bhrqk,bkhd->bqhrd", pg.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------- #
+# loss
+# ----------------------------------------------------------------------- #
+def cross_entropy_loss(hidden, head_w, labels, *, chunk: int = 0,
+                       softcap: float = 0.0):
+    """Mean next-token cross entropy.
+
+    hidden: (B, S, d); head_w: (d, V); labels: (B, S) with -100 = ignore.
+    Logits are cast to fp32 after the head matmul, as in the reference.
+    ``chunk`` > 0 (and a divisor of S smaller than S) takes the sequence
+    ``chunk`` positions at a time through the head; the reference unrolls
+    up to 16 chunks and scans more, and both are this one loop here,
+    which sums the chunks in the same order.
+    """
+    S = hidden.shape[1]
+
+    def piece_loss(h, y):
+        logits = (h @ head_w).float()
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              y.clamp_min(0).long()[..., None])[..., 0]
+        keep = (y >= 0).float()
+        return torch.sum((lse - picked) * keep), torch.sum(keep)
+
+    if chunk and S > chunk and S % chunk == 0:
+        tot, cnt = 0.0, 0.0
+        for i in range(S // chunk):
+            piece = slice(i * chunk, (i + 1) * chunk)
+            loss, count = piece_loss(hidden[:, piece], labels[:, piece])
+            tot, cnt = tot + loss, cnt + count
+    else:
+        tot, cnt = piece_loss(hidden, labels)
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -6,7 +6,10 @@ the leaves into numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``) and hands the tree here; the port never sees JAX.  Stacked
 (``scan_layers``) and unrolled layouts pass through unchanged, since the
 port reads both.  The micro MLPs' parameters, a list of ``(w, c)`` pairs,
-cross with :func:`micro_params_from_numpy`.
+cross with :func:`micro_params_from_numpy`.  The way back,
+:func:`params_to_numpy`, gives numpy leaves, a bf16 tensor as the
+``uint16`` view of its bits (numpy has no bf16 of its own; a caller
+with ``ml_dtypes`` views them as its ``bfloat16``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,24 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.uint16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor as numpy; bf16 as its ``uint16`` bits."""
+    t = t.detach().to("cpu", copy=True).contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The port's parameter tree with numpy leaves (see
+    :func:`tensor_to_numpy`), dicts and lists as they are."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tensor_to_numpy(tree)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Any, device="cuda") -> Any:

@@ -28,6 +28,10 @@ public surface is :class:`Model` (build with :func:`build_model`):
     cache                     = model.init_cache(batch, max_len,
                                                  memory_len=..., device=...)
     batch_specs               = model.input_specs(shape)   # meta tensors
+
+``cfg.remat`` recomputes each block of a train-mode forward in the
+backward (``torch.utils.checkpoint``), as the reference rematerialises
+each block.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import DEC, ENC, MLA_MOE, ModelConfig, ShapeConfig
@@ -157,11 +162,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # --------------------------------------------------------------------- #
 def _run_stack(params_list, kinds, x, cfg, *, mode, positions=None,
                pos=None, caches=None, memory=None):
+    """Run blocks in turn.  ``cfg.remat`` in train mode recomputes each
+    block in the backward instead of keeping its activations (the
+    reference's per-block ``jax.checkpoint``); a train block has no
+    cache."""
+    remat = cfg.remat and mode == "train"
     for i, kind in enumerate(kinds):
         c = caches[i] if caches is not None else None
-        x, _ = apply_block(params_list[i], x, cfg, kind, mode=mode,
-                           positions=positions, pos=pos, cache=c,
-                           memory=memory)
+        if remat:
+            def block(p, h, kind=kind):
+                return apply_block(p, h, cfg, kind, mode=mode,
+                                   positions=positions, pos=pos, cache=None,
+                                   memory=memory)[0]
+            x = checkpoint(block, params_list[i], x, use_reentrant=False)
+        else:
+            x, _ = apply_block(params_list[i], x, cfg, kind, mode=mode,
+                               positions=positions, pos=pos, cache=c,
+                               memory=memory)
     return x
 
 

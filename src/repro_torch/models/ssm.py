@@ -134,7 +134,10 @@ def ssd_chunked(x, dt, a_log, B_in, C_in, *, chunk: int,
     csh = cs.transpose(2, 3)                                 # (B,nc,H,Q)
     decay = csh[..., :, None] - csh[..., None, :]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(tri, torch.exp(decay), 0.0)              # (B,nc,H,Q,Q)
+    # masked before the exp: above the diagonal decay = cs_i - cs_j > 0
+    # can overflow, and where(tri, exp(decay), 0) then has a 0 · inf =
+    # NaN gradient (the reference's does); the values are the same
+    L = torch.exp(torch.where(tri, decay, -torch.inf))       # (B,nc,H,Q,Q)
     dtx = xc * dtc[..., None]                                # (B,nc,Q,H,P)
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores * L, dtx)
 

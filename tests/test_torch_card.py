@@ -382,3 +382,59 @@ def test_cuda_kernels_refuse_inputs_that_require_grad(cuda, name):
     assert KERNEL_STATS[name].launches > before
     out = out[0] if isinstance(out, tuple) else out
     assert out.device.type == "cuda" and bool(torch.isfinite(out).all())
+
+
+def _reduced_train(dtype="float32", **overrides):
+    """Reduced gemma3-1b (2 repeats, d_model 64, vocab 512), a TrainConfig
+    and one seeded batch from the synthetic corpus."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import batches_for_model
+    from repro_torch.training import AdamWConfig, TrainConfig
+    cfg = get_config("gemma3-1b").reduced(dtype=dtype).with_overrides(
+        **overrides)
+    batch = next(batches_for_model(
+        cfg, ShapeConfig("t", seq_len=64, global_batch=2, kind="train")))
+    return cfg, TrainConfig(adamw=AdamWConfig(learning_rate=1e-3,
+                                              warmup_steps=1)), batch
+
+
+def test_cuda_train_step_refuses_the_kernels(cuda):
+    """Training through the kernels would lose gradients at them: the
+    step raises the wrappers' RuntimeError and launches nothing."""
+    from repro_torch.models.lm import init_params
+    from repro_torch.training import init_adamw, make_train_step
+    cfg, tcfg, batch = _reduced_train(use_pallas_kernels=True)
+    params = init_params(cfg, 0, device=cuda)
+    step = make_train_step(cfg, tcfg)
+    before = KERNEL_STATS["flash_attention"].launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        step(params, init_adamw(tcfg.adamw, params),
+             {k: v.to(cuda) for k, v in batch.items()})
+    assert KERNEL_STATS["flash_attention"].launches == before
+
+
+def test_cuda_train_moves_the_params_and_matches_cpu(cuda):
+    """``train`` on the card: every parameter stays on the card and
+    moves, and two steps repeat the CPU's losses (fp32, 1e-5 relative)."""
+    import itertools
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import init_params
+    from repro_torch.training import train
+    from repro_torch.training.tree import leaves_with_path, tree_map
+    cfg, tcfg, batch = _reduced_train()
+    model = build_model(cfg)
+    start = init_params(cfg, 0, device="cpu")
+    losses = {}
+    for dev in ("cpu", cuda):
+        got = []
+        out, opt, _ = train(
+            model, tcfg, itertools.repeat(batch), steps=2, device=dev,
+            params=tree_map(lambda t: t.to(dev, copy=True), start),
+            on_step=lambda s, m: got.append(float(m["loss"])))
+        losses[str(dev)] = got
+        assert int(opt.step) == 2
+    for (name, new), (_, old) in zip(leaves_with_path(out),
+                                     leaves_with_path(start)):
+        assert new.device.type == "cuda", name
+        assert not torch.equal(new.cpu(), old), name
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)

@@ -1,7 +1,8 @@
 """The port stands alone: it imports no JAX and nothing of ``repro``.
 
 * Every module of ``repro_torch`` imports in a fresh interpreter without
-  pulling a ``jax*`` or ``repro``/``repro.*`` module into ``sys.modules``.
+  pulling a ``jax*``, ``ml_dtypes`` or ``repro``/``repro.*`` module into
+  ``sys.modules`` (the card's machine has none of them).
 * ``chip_smoke.py`` imports neither.
 * The pure-Python modules the port copies (configs, core, serving) stay
   byte-identical to their reference files, so the copies cannot drift.
@@ -58,15 +59,21 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax_or_reference():
     modules = _port_modules()
-    assert "repro_torch.kernels.flash_attention" in modules
-    assert "repro_torch.launch.bench_serving" in modules
+    for name in ("repro_torch.kernels.flash_attention",
+                 "repro_torch.launch.bench_serving",
+                 "repro_torch.launch.train", "repro_torch.data.pipeline",
+                 "repro_torch.training.checkpoint",
+                 "repro_torch.training.optimizer",
+                 "repro_torch.training.train_loop",
+                 "repro_torch.training.tree"):
+        assert name in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'repro.'))\n"
-        "             or m == 'repro')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'repro.',\n"
+        "                              'ml_dtypes')))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT,
@@ -127,8 +134,13 @@ def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     from repro_torch.configs.gemma3_1b import GEMMA3_1B
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batches_for_model
+    from repro_torch.launch import train as launch_train
     from repro_torch.launch.bench_serving import run_real_scenario
     from repro_torch.launch.serve import make_torch_runner
+    from repro_torch.models.lm import build_model
+    from repro_torch.training import TrainConfig, train
     from repro_torch.models.lm import init_params
     from repro_torch.models.micro import (make_fidelity_micro_runner,
                                           make_micro_runner)
@@ -140,6 +152,12 @@ def test_entry_points_raise_without_cuda():
                  lambda: make_micro_runner("attn-tiny"),
                  lambda: make_fidelity_micro_runner("mlp"),
                  lambda: make_torch_runner("gemma3-1b"),
+                 lambda: launch_train.main(["--arch", "gemma3-1b",
+                                            "--reduced", "--steps", "1"]),
+                 lambda: train(build_model(GEMMA3_1B.reduced()),
+                               TrainConfig(), batches_for_model(
+                                   GEMMA3_1B.reduced(), ShapeConfig(
+                                       "t", 8, 1, "train")), steps=1),
                  lambda: run_real_scenario(
                      get_scenario("steady-poisson"), real_model="mlp-tiny",
                      units=2, duration=1.0, seed=0, initial_batch=1,
