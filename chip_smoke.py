@@ -26,8 +26,9 @@ plane, full-width gemma3-1b training, and the kernels each one runs:
   24 attention layers through ``flash_attention`` and
   ``decode_attention`` at head dim 64 and a GQA group of 7 (14 heads on
   2);
-* attn-tiny — ``flash_attention`` on its CUDA-core route (fp32, head
-  dim 16); mlp-tiny and mlp run no kernel of the port.
+* attn-tiny — ``flash_attention`` on its short route (fp32, head dim
+  16, S = 16, 8 and 4, unpadded on the card); mlp-tiny and mlp run no
+  kernel of the port.
 
 Phases, each printing JSON lines; any failure raises and the script exits
 non-zero:
@@ -38,16 +39,18 @@ non-zero:
    card, fp32 and bf16: the shape grids of ``tests/test_kernels.py``,
    head dim 8, GQA groups 1-16, windows, partial tiles, a single chunk,
    attn-tiny's shapes (fp32, 2 heads of 16, S = 16, 8 and 4 at B = 1,
-   16 and 256; the wrapper pads 8 and 4 to 16, the forced route takes
-   them as they are), and the serving shapes of the LM paths at B = 1
+   16 and 256, which the wrapper passes unpadded to the short route;
+   there the unpadded call must equal the call padded to 16 bit for
+   bit), and the serving shapes of the LM paths at B = 1
    and 4 (head dim 64 at 16 heads on 16 and 14 on 2 for seamless-m4t-
    medium and internvl2-1b; decode also at B = 8 and at the serve
    phase's cache lengths; decode lengths of 1, one split, one split + 1
-   and S; RG-LRU partial chunks and column tiles).  ``flash_attention``,
-   ``decode_attention`` and ``ssd_scan`` have two routes each (CUDA cores, tensor cores for
-   bf16): every case runs through the public wrapper and through each
-   route that takes it, forced, and the wrapper's choice by shape must
-   match the Python route rule bit for bit; ``rglru_scan`` has one
+   and S; RG-LRU partial chunks and column tiles).  ``decode_attention``
+   and ``ssd_scan`` have two routes each (CUDA cores, tensor cores for
+   bf16), ``flash_attention`` three (and the short route for fp32 with
+   Sq, Sk <= 16): every case runs through the public wrapper and through
+   each route that takes it, forced, and the wrapper's choice by shape
+   must match the Python route rule bit for bit; ``rglru_scan`` has one
    kernel, the chunked scan.  Tolerances are ``tests/test_kernels.py``'s (atol = rtol =
    2e-5 fp32, 2e-2 bf16); the scans' final states are compared too, and
    the fp32 SSD kernel is held against the sequential recurrence in fp64
@@ -58,7 +61,10 @@ non-zero:
    calls; no single call computes either scan) and the card's bound for
    the work.  ``time_ms`` times the device alone: a sleep kernel holds
    the device while the host queues the whole batch, so ``ms`` is not the
-   host's cadence, which ``host_ms`` reports beside it.
+   host's cadence, which ``host_ms`` reports beside it.  The same timing
+   of an empty kernel (``torch.cuda._sleep(0)``) is the per-launch floor
+   of ``ms``; at attn-tiny's shapes each route's kernel duration from
+   ``torch.profiler`` is printed beside its ``ms``.
 3. **model** — per path, one prompt and 8 decode steps through the
    kernels against the same weights through the plain path: gemma3-1b
    1024 tokens (past its 512-token window, so the ring cache rolls),
@@ -104,12 +110,13 @@ non-zero:
    before each path and read just after it.
 6. **micro** — per micro model: the card's step against the CPU plain
    step on the same weights (fp32, 2e-5), a trace of one runner step at
-   b = 1 and 256, then the launcher's ``run_real_scenario`` on
-   steady-poisson (4 s, 4 units, max batch 256, capped at 300 req/s)
-   under both policies and both dispatches.  Every request must
-   complete; the counts, reset just before the scenario and read just
-   after, must show attn-tiny's flash calls on the CUDA-core route only,
-   no kernel for the MLPs, and no CPU-route call.
+   b = 1 and 256 (attn-tiny also at its rungs S = 8 and 4), then the
+   launcher's ``run_real_scenario`` on steady-poisson (4 s, 4 units,
+   max batch 256, capped at 300 req/s) under both policies and both
+   dispatches.  Every request must complete; the counts, reset just
+   before the scenario and read just after, must show attn-tiny's flash
+   calls on the short route only, no kernel for the MLPs, and no
+   CPU-route call.
 7. **launcher** — ``repro_torch.launch.bench_serving`` on the fast
    simulated plane (step-up, 20 s), twice: the reports must be identical.
 8. **serve_online** — ``repro_torch.launch.serve`` with
@@ -153,7 +160,8 @@ non-zero:
      kernels).
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
-(``launches_by_path`` includes ``train-eval``) and,
+(one row per route of each kernel; ``launches_by_path`` includes
+``train-eval``) and,
 last, ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 2 (a quick check after editing a kernel).
 """
@@ -197,7 +205,7 @@ CUT = {"deepseek-v2-236b": {"n_repeats": 2}}
 # the model check's MoE capacity factor: >= n_experts / top_k (160 / 6),
 # so no assignment is dropped and prefill + decode equals the forward
 DROPLESS_CF = 32.0
-ROUTES = ("cuda_core", "tensor_core", "chunked")
+ROUTES = ("cuda_core", "tensor_core", "short", "chunked")
 # the host calls that put a kernel on the device, as the profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
@@ -216,10 +224,12 @@ MODEL_FRAMES = {"seamless-m4t-medium": 2048}
 D64_SERVING = ((16, 16), (14, 2))
 # micro models of the real plane: model -> {kernel: the route its serving
 # run must launch}; any other launch fails the path.  attn-tiny runs the
-# fp32 flash kernel (2 heads of head dim 16), the MLPs no kernel
+# fp32 flash kernel's short route (2 heads of head dim 16), the MLPs no
+# kernel
 MICRO_PATHS = {"mlp-tiny": {}, "mlp": {},
-               "attn-tiny": {"flash_attention": "cuda_core"}}
+               "attn-tiny": {"flash_attention": "short"}}
 ATTN_TINY_HD = (2, 16)            # attn-tiny's (heads, head dim)
+ATTN_TINY_SEQS = (16, 8, 4)       # its fidelity rungs' sequence lengths
 MICRO_MLP = {"mlp-tiny": (32, 2), "mlp": (128, 4)}   # width, depth
 MICRO_SECONDS, MICRO_UNITS, MICRO_BATCHES = 4.0, 4, (1, 256)
 # serve_online: examples/serve_online.py's arguments, a shorter run
@@ -240,20 +250,31 @@ TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "512",
 TRAIN_MARGIN = 0.02
 # the card-against-CPU check: gemma3-1b reduced to 8 layers, d_model 64
 TRAIN_REDUCED = {"n_repeats": 1, "vocab_size": 1024}
-# (row, source, the TPU kernel it replaces): one row per kernel, and the
-# flash kernel's CUDA-core route (flash_fwd_kernel, attn-tiny's path) in
-# a row of its own; each row's launches are those of its headline's route
+# (row, headline, route, source, the TPU kernel it replaces): one row per
+# route of each kernel, timed forced at its headline's shape: flash's
+# tensor cores at gemma3-1b's prefill, its short route and CUDA-core
+# kernel (flash_fwd_kernel) at attn-tiny's, the CUDA-core decode and SSD
+# kernels in fp32 at their bf16 rows' shapes; each row's launches are
+# those of its route
+_CSRC = "src/repro_torch/kernels/csrc/"
 KERNEL_ROWS = (
-    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-     "src/repro/kernels/flash_attention.py:89"),
-    ("flash_attention/cuda_core",
-     "src/repro_torch/kernels/csrc/flash_attention.cu",
-     "src/repro/kernels/flash_attention.py:89"),
-    ("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+    ("flash_attention", "flash_attention", "tensor_core",
+     _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
+    ("flash_attention/short", "flash_attention/attn-tiny", "short",
+     _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
+    ("flash_attention/cuda_core", "flash_attention/attn-tiny", "cuda_core",
+     _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
+    ("decode_attention", "decode_attention", "tensor_core",
+     _CSRC + "decode_attention.cu",
      "src/repro/kernels/decode_attention.py:125"),
-    ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    ("decode_attention/cuda_core", "decode_attention/fp32", "cuda_core",
+     _CSRC + "decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:125"),
+    ("ssd_scan", "ssd_scan", "tensor_core", _CSRC + "ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:72"),
-    ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    ("ssd_scan/cuda_core", "ssd_scan/fp32", "cuda_core", _CSRC + "ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:72"),
+    ("rglru_scan", "rglru_scan", "chunked", _CSRC + "rglru_scan.cu",
      "src/repro/kernels/rglru_scan.py:51"),
 )
 
@@ -332,29 +353,44 @@ def main(argv=None) -> int:
         timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: no output", flush=True)
-    headline = kernels_rep["headline"]
-    rows = []
-    for name, source, replaces in KERNEL_ROWS:
-        h = headline[name]
-        kernel = name.split("/")[0]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": launches[kernel].get(h["route"], 0),
-                     "launches_by_route": launches[kernel],
-                     "launches_by_path": by_path[kernel],
-                     "kernel_route": h["route"],
-                     "max_abs_err": h["max_abs_err"], "ms": h["ms"],
-                     "host_ms": h["host_ms"],
-                     "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-                     "bound_by": h["bound_by"],
-                     "library_ms": h["library_ms"], "shape": h["shape"],
-                     "routes": h.get("routes", {})})
-    emit({"kernels": rows})
+    emit({"kernels": kernel_rows(kernels_rep, launches, by_path)})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def kernel_rows(kernels_rep, launches, by_path):
+    """The ``kernels`` line: one row per :data:`KERNEL_ROWS` entry, its
+    route forced at its headline's shape (``ms``; the wrapper's time by
+    shape beside it, and every route's), with the launches of that route
+    on the main paths and the per-launch floor of ``ms``."""
+    rows = []
+    for name, key, route, source, replaces in KERNEL_ROWS:
+        h = kernels_rep["headline"][key]
+        kernel = name.split("/")[0]
+        r = h.get("routes", {}).get(route, h)   # rglru_scan: one kernel
+        err = r["max_abs_err"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": launches[kernel].get(route, 0),
+            "launches_by_path": {p: c[route]
+                                 for p, c in by_path[kernel].items()
+                                 if route in c},
+            "kernel_route": route, "dtype": h["dtype"],
+            "max_abs_err": max(err.values()) if isinstance(err, dict)
+            else err,
+            "ms": r["ms"], "host_ms": r["host_ms"],
+            "launch_floor_ms": kernels_rep["launch_floor"]["ms"],
+            "profiler_ms": r.get("device_kernels_ms"),
+            "wrapper_ms": h["ms"], "wrapper_host_ms": h["host_ms"],
+            "routes_ms": {n: x["ms"] for n, x in h.get("routes", {}).items()},
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+            "shape": h["shape"]})
+    return rows
 
 
 # --------------------------------------------------------------------- #
@@ -426,24 +462,56 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> dict:
             "covered": covered}
 
 
+def _device_events(prof):
+    """The device records of a profile: kernels, copies and fills, without
+    the device side of :func:`_profile`'s step annotation."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+
+
+def _profile(torch, fn, tries: int = 3):
+    """``fn`` under ``torch.profiler`` (CPU and CUDA activity), after a
+    warm-up cycle of a few empty kernels whose events the profiler drops,
+    and again (at most ``tries`` sessions) while the session holds fewer
+    kernel records than launch calls.  Once a process has run many
+    sessions (the kernels phase), a session without the warm-up lost its
+    first two kernel records to the tracer's start-up, on any stream, and
+    with it now and then more, so attn-tiny's one-kernel step read as no
+    device time at all."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                      for e in _device_events(prof))
+        if kernels >= sum(e.name in LAUNCH_CALLS for e in prof.events()):
+            break
+    return prof
+
+
 def kernel_breakdown(torch, fn, iters: int = 20) -> dict:
     """Device ms per call of each CUDA kernel ``fn`` launches, from
     ``torch.profiler`` over ``iters`` calls."""
     import collections
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
     by_name = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            by_name[name.split("(")[0][:60]] += e.device_time_total / 1e3
+    for e in _device_events(_profile(torch, calls)):
+        name = e.name.replace("(anonymous namespace)::", "")
+        by_name[name.split("(")[0][:60]] += e.device_time_total / 1e3
     return {name: ms / iters for name, ms in by_name.most_common()}
 
 
@@ -567,9 +635,9 @@ def phase_kernels(torch):
 
     def routes_for(rule):
         """Every route that takes a case: the CUDA-core kernels take every
-        shape the wrapper accepts, the tensor cores those of the rule."""
-        return (("cuda_core", "tensor_core") if rule == "tensor_core"
-                else ("cuda_core",))
+        shape the wrapper accepts, the tensor cores (and flash's short
+        route) those of the rule."""
+        return ("cuda_core",) if rule == "cuda_core" else ("cuda_core", rule)
 
     # flash: tests/test_kernels.py grids, head dim 8, GQA groups 1, 2, 4,
     # 8 and 16, windows 16/48/100, one partial 64-row tile (S = 16, 32,
@@ -596,10 +664,11 @@ def phase_kernels(torch):
             for H, Hkv in D64_SERVING:
                 flash.append((dt, B, 512, H, Hkv, 64, 0, 512))
     # attn-tiny (the micro path): fp32, 2 heads of 16, its rungs' S = 16,
-    # 8 and 4 (the wrapper pads 8 and 4 to 16), at B = 1, 16 and 256
+    # 8 and 4 (on the card unpadded: the short route), at B = 1, 16, 256
+    heads, hd = ATTN_TINY_HD
     for B in (1, 16, 256):
-        for S in (16, 8, 4):
-            flash.append(("float32", B, S, 2, 2, 16, 0, 512))
+        for S in ATTN_TINY_SEQS:
+            flash.append(("float32", B, S, heads, heads, hd, 0, 512))
     timings = {"flash_attention": [], "decode_attention": [],
                "ssd_scan": [], "rglru_scan": []}
     for dt, B, S, H, Hkv, D, window, blk in flash:
@@ -613,9 +682,20 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         shape = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
                  "window": window}
-        rule = flash_mod.route(dt, D)
+        rule = flash_mod.route(dt, D, S, S)
         err = check("flash_attention", shape, dt, got, want, route=rule,
                     via="ops.flash_attention")
+        tiny = dt == "float32" and (H, D) == ATTN_TINY_HD
+        if tiny and S < max(ATTN_TINY_SEQS):
+            # the wrapper's unpadded call against the call padded to 16
+            def pad(x):
+                return torch.cat([x, x.new_zeros(
+                    (B, max(ATTN_TINY_SEQS) - S, *x.shape[2:]))], 1)
+            padded = flash_mod.launch(pad(q), pad(k), pad(v), causal=True,
+                                      window=window)[:, :S]
+            cases.append({"kernel": "flash_attention", "shape": shape,
+                          "dtype": dt, "check": "unpadded == padded",
+                          "ok": torch.equal(got, padded)})
         forced, errs = {}, {}
         for r in routes_for(rule):
             forced[r] = flash_mod.launch(q, k, v, causal=True,
@@ -626,8 +706,7 @@ def phase_kernels(torch):
         same_route("flash_attention", shape, dt, rule,
                    [flash_mod.launch(q, k, v, causal=True, window=window)],
                    [forced[rule]])
-        if D == 256 or (H, D) == ATTN_TINY_HD or (
-                D == 64 and (H, Hkv) in D64_SERVING):
+        if D == 256 or tiny or (D == 64 and (H, Hkv) in D64_SERVING):
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(v, H // Hkv, 2).transpose(1, 2)
@@ -647,20 +726,46 @@ def phase_kernels(torch):
             flops = 4.0 * D * B * H * _visible_pairs(S, window)
             nbytes = elem * (2 * B * S * H * D + 2 * B * S * Hkv * D)
             bound_ms, bound_by = _bound(nbytes, flops, dt)
-            wrapper = time_ms(torch, lambda: ops.flash_attention(
-                q, k, v, causal=True, window=window, block_q=blk,
-                block_kv=blk))
+            # attn-tiny's kernels take a few microseconds: more calls, and
+            # each route's kernel duration from the profiler beside
+            iters = 100 if tiny else 20
+
+            def wrapper_call():
+                return ops.flash_attention(q, k, v, causal=True,
+                                           window=window, block_q=blk,
+                                           block_kv=blk)
+            wrapper = time_ms(torch, wrapper_call, iters=iters)
             plain = time_ms(torch, lambda: ref.flash_attention_ref(
                 q, k, v, causal=True, window=window))
-            library = time_ms(torch, lib)
+            library = time_ms(torch, lib, iters=iters)
+            routes = {}
+            for r in routes_for(rule):
+                def call(r=r):
+                    return flash_mod.launch(q, k, v, causal=True,
+                                            window=window, force=r)
+                routes[r] = {"max_abs_err": errs[r],
+                             **time_ms(torch, call, iters=iters)}
+                if tiny:
+                    routes[r]["device_kernels_ms"] = kernel_breakdown(
+                        torch, call, iters=iters)
+            extra = {}
+            if tiny:
+                extra["wrapper_kernels_ms"] = kernel_breakdown(
+                    torch, wrapper_call, iters=iters)
+            if tiny and S < max(ATTN_TINY_SEQS):
+                # what the wrapper did before it skipped the padding:
+                # zero-pad q/k/v to 16, launch by shape, slice
+                def padded_call():
+                    return flash_mod.launch(pad(q), pad(k), pad(v),
+                                            causal=True,
+                                            window=window)[:, :S]
+                extra["padded_wrapper"] = time_ms(torch, padded_call,
+                                                  iters=iters)
             timings["flash_attention"].append({
                 "shape": shape, "dtype": dt, "route": rule,
                 "max_abs_err": err, "ms": wrapper["ms"],
                 "host_ms": wrapper["host_ms"], "covered": wrapper["covered"],
-                "routes": {r: {"max_abs_err": errs[r], **time_ms(
-                    torch, lambda r=r: flash_mod.launch(
-                        q, k, v, causal=True, window=window, force=r))}
-                    for r in routes_for(rule)},
+                "routes": routes, **extra,
                 "library_kernels_ms": kernel_breakdown(torch, lib),
                 "plain_ms": plain["ms"], "library_ms": library["ms"],
                 "library_host_ms": library["host_ms"],
@@ -874,6 +979,12 @@ def phase_kernels(torch):
                     "library_ms": None,
                     "bound_ms": bound_ms, "bound_by": bound_by})
 
+    # the per-launch floor of ``ms``: an empty kernel timed the same way
+    launch_floor = {**time_ms(torch, lambda: torch.cuda._sleep(0),
+                              iters=100),
+                    "device_kernels_ms": kernel_breakdown(
+                        torch, lambda: torch.cuda._sleep(0), iters=100)}
+
     failed = [c for c in cases if not c["ok"]]
     # headline: the serving phase's largest cells in the dtype its calls
     # pass — a 512-token bf16 prefill at b=4, a bf16 decode step at b=4
@@ -886,20 +997,22 @@ def phase_kernels(torch):
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
             and t["shape"]["S"] == 512 and t["shape"]["H"] == 4
             and t["shape"]["window"] == 0),
-        # attn-tiny's largest serving cell: the CUDA-core route's path
-        "flash_attention/cuda_core": next(
+        # attn-tiny's largest serving cell: the short route's path
+        "flash_attention/attn-tiny": next(
             t for t in timings["flash_attention"]
             if t["dtype"] == "float32" and t["shape"]["B"] == 256
-            and t["shape"]["S"] == 16
+            and t["shape"]["S"] == max(ATTN_TINY_SEQS)
             and (t["shape"]["H"], t["shape"]["D"]) == ATTN_TINY_HD),
-        "decode_attention": next(
+        **{f"decode_attention{sfx}": next(
             t for t in timings["decode_attention"]
-            if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
+            if t["dtype"] == dt and t["shape"]["B"] == 4
             and t["shape"]["S"] == 1024 and t["shape"]["H"] == 4
-            and t["shape"]["lengths"] == [520] * 4),
-        "ssd_scan": next(t for t in timings["ssd_scan"]
-                         if t["dtype"] == "bfloat16"
-                         and t["shape"]["B"] == 4),
+            and t["shape"]["lengths"] == [520] * 4)
+           for dt, sfx in (("bfloat16", ""), ("float32", "/fp32"))},
+        **{f"ssd_scan{sfx}": next(t for t in timings["ssd_scan"]
+                                  if t["dtype"] == dt
+                                  and t["shape"]["B"] == 4)
+           for dt, sfx in (("bfloat16", ""), ("float32", "/fp32"))},
         "rglru_scan": next(t for t in timings["rglru_scan"]
                            if t["dtype"] == "float32"
                            and t["shape"]["B"] == 4),
@@ -916,6 +1029,7 @@ def phase_kernels(torch):
            "tolerance": {dt: {"atol": a, "rtol": r}
                          for dt, (a, r) in TOL.items()},
            "sleep_cycles_per_ms": _cycles_per_ms(torch),
+           "launch_floor": launch_floor,
            "timings": timings, "headline": headline}
     if failed:
         emit({"phase": "kernels", **rep})
@@ -1181,10 +1295,13 @@ def _trace_report(prof, wall_ms, enqueue_ms, steps):
     from torch.autograd import DeviceType
     by_name = collections.Counter()
     host_ops = collections.Counter()
+    kernels = 0              # device kernel records, against the launches
+    for e in _device_events(prof):
+        by_name[e.name[:80]] += e.device_time_total / 1e3
+        kernels += not e.name.startswith(("Memcpy", "Memset"))
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name[:80]] += e.device_time_total / 1e3
-        else:
+        if e.device_type != DeviceType.CUDA and \
+                not e.name.startswith("ProfilerStep"):   # _profile's cycle
             host_ops[e.name[:80]] += e.self_cpu_time_total / 1e3
     busy_ms = sum(by_name.values())
     # cuBLAS launches its GEMMs through cudaLaunchKernelExC
@@ -1194,6 +1311,7 @@ def _trace_report(prof, wall_ms, enqueue_ms, steps):
             "device_busy_ms_per_step": busy_ms / steps,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "launches_per_step": launches / steps,
+            "kernel_records_per_step": kernels / steps,
             "top_kernels_ms_per_step": {
                 name: ms / steps
                 for name, ms in by_name.most_common(TRACE_TOP)},
@@ -1206,17 +1324,13 @@ def _trace_report(prof, wall_ms, enqueue_ms, steps):
 def _traced(torch, fn, steps):
     """One untraced run of ``fn`` (``steps`` steps) on the host clock,
     then one under ``torch.profiler`` (:func:`_trace_report`)."""
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = _profile(torch, fn)
     return _trace_report(prof, wall * 1e3, enqueue * 1e3, steps)
 
 
@@ -1345,7 +1459,6 @@ def phase_serve(torch, name: str):
 # phase 6: the micro models through the launcher's real path
 # --------------------------------------------------------------------- #
 def phase_micro(torch, name: str):
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.bench_serving import (DISPATCHES, POLICIES,
                                                   policy_key,
                                                   run_real_scenario)
@@ -1354,15 +1467,17 @@ def phase_micro(torch, name: str):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
     # the card's step against the CPU plain step, same weights and inputs
+    # (attn-tiny: at each rung's S, the outputs flattened end to end)
     b = max(MICRO_BATCHES)
     if name == "attn-tiny":
-        cpu_in = [torch.randn((b, 16, *ATTN_TINY_HD), generator=gen)
-                  for _ in range(3)]
-        want = micro.attn_step(*cpu_in)
-        card_in = [t.to(dev) for t in cpu_in]
+        cpu_in = [[torch.randn((b, seq, *ATTN_TINY_HD), generator=gen)
+                   for _ in range(3)] for seq in ATTN_TINY_SEQS]
+        want = torch.cat([micro.attn_step(*x).flatten() for x in cpu_in])
+        card_in = [[t.to(dev) for t in x] for x in cpu_in]
 
         def card_step():
-            return micro.attn_step(*card_in).cpu()
+            return torch.cat([micro.attn_step(*x).flatten()
+                              for x in card_in]).cpu()
     else:
         dim, depth = MICRO_MLP[name]
         params = micro.init_mlp_params(dim, depth, 0, "cpu")
@@ -1393,42 +1508,52 @@ def phase_micro(torch, name: str):
 
     # one step through the runner, traced: wall per step (the runner
     # waits for its stream), the host's time to enqueue the bare step,
-    # device busy time, idle share and launches, at b = 1 and 256
-    make_runner = micro.make_micro_runner(name)
+    # device busy time, idle share and launches, at b = 1 and 256; for
+    # attn-tiny at each fidelity rung (rung 0 under "trace", the shorter
+    # rungs under "trace_rungs" by S)
+    rungs = ATTN_TINY_SEQS if name == "attn-tiny" else (None,)
+    make_runner = micro.make_fidelity_micro_runner(name, n_rungs=len(rungs)) \
+        if name == "attn-tiny" else micro.make_micro_runner(name)
     steps = 50
     rep["trace"] = {}
-    for bt in MICRO_BATCHES:
-        if name == "attn-tiny":
-            xs = [torch.randn((bt, 16, *ATTN_TINY_HD), generator=gen).to(dev)
-                  for _ in range(3)]
+    if name == "attn-tiny":
+        rep["trace_rungs"] = {}
+    for rung, seq in enumerate(rungs):
+        out = rep["trace"] if rung == 0 else \
+            rep["trace_rungs"].setdefault(f"S={seq}", {})
+        for bt in MICRO_BATCHES:
+            if name == "attn-tiny":
+                xs = [torch.randn((bt, seq, *ATTN_TINY_HD),
+                                  generator=gen).to(dev) for _ in range(3)]
 
-            def step():
-                micro.attn_step(*xs)
-        else:
-            w_dev = [(w.to(dev), c.to(dev)) for w, c in params]
-            x_dev = torch.ones((bt, MICRO_MLP[name][0]), device=dev)
+                def step():
+                    micro.attn_step(*xs)
+                run = make_runner(MICRO_UNITS, bt, fidelity=rung)
+            else:
+                w_dev = [(w.to(dev), c.to(dev)) for w, c in params]
+                x_dev = torch.ones((bt, MICRO_MLP[name][0]), device=dev)
 
-            def step():
-                micro.mlp_step(x_dev, w_dev)
-        run = make_runner(MICRO_UNITS, bt)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        enqueue = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            run()
-        wall = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                def step():
+                    micro.mlp_step(x_dev, w_dev)
+                run = make_runner(MICRO_UNITS, bt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            enqueue = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             for _ in range(steps):
                 run()
-            torch.cuda.synchronize()
-        rep["trace"][str(bt)] = _trace_report(prof, wall, enqueue, steps)
-        if rep["trace"][str(bt)]["device_busy_ms_per_step"] <= 0:
-            raise AssertionError(f"{name}: the trace saw no device time")
+            wall = (time.perf_counter() - t0) * 1e3
+
+            def runs():
+                for _ in range(steps):
+                    run()
+            out[str(bt)] = _trace_report(_profile(torch, runs), wall,
+                                         enqueue, steps)
+            if out[str(bt)]["device_busy_ms_per_step"] <= 0:
+                raise AssertionError(f"{name}: the trace saw no device time")
     del make_runner, run
 
     # the main path: the launcher's real micro scenario, both policies x

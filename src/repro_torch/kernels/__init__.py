@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels for the serving hot spots, with plain versions.
 
 * flash_attention — prefill attention (tiled online softmax), CUDA:
-  tensor cores (mma.sync) for bf16, CUDA cores for fp32 and head dim 8
+  tensor cores (mma.sync) for bf16, a warp per (batch, head) for fp32
+  with at most 16 rows and keys (the short route), CUDA cores for the
+  rest of fp32 and head dim 8
 * decode_attention — flash-decode against a KV cache in 64-row splits
   and a combine, CUDA: tensor cores (mma.sync) for bf16 with GQA groups
   up to 16, CUDA cores for fp32, head dim 8 and larger groups
@@ -10,10 +12,10 @@
 * rglru_scan — RG-LRU linear recurrence over time, CUDA: one chunked
   scan for every shape
 
-flash_attention, decode_attention and ssd_scan each have two routes and
-choose one by dtype and shape before the launch (``<module>.route``);
-``launch`` in each of those modules can force one, for timing and
-checking both on a card.
+decode_attention and ssd_scan each have two routes, flash_attention
+three, and each chooses one by dtype and shape before the launch
+(``<module>.route``); ``launch`` in each of those modules can force one,
+for timing and checking them all on a card.
 
 ``ops`` holds the public wrappers (the reference's padding semantics),
 ``ref`` the plain PyTorch versions, ``build`` the nvcc build and the

@@ -34,13 +34,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the C entries' contract: dtype codes, the head dims they are built for
-# and the ``route`` argument of the kernels with two routes (flash, decode
-# and SSD; 0 lets the shape decide)
+# and the ``route`` argument of the kernels with several routes (flash,
+# decode and SSD; 0 lets the shape decide; only flash has ``short``, and
+# the decode and SSD entries refuse its code)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 TENSOR_CORE_HEAD_DIMS = HEAD_DIMS[1:]   # mma.sync needs a depth of 16
+# flash's short route: fp32, at most SHORT_MAX_SEQ query rows and keys
+SHORT_HEAD_DIMS = (8, 16, 32)
+SHORT_MAX_SEQ = 16
 ROUTE_BY_SHAPE = 0
-ROUTE_CODES = {"cuda_core": 1, "tensor_core": 2}
+ROUTE_CODES = {"cuda_core": 1, "tensor_core": 2, "short": 3}
 MAX_SMEM_BYTES = 232_448          # one block's shared memory on an H100
 
 _lock = threading.Lock()
@@ -55,8 +59,9 @@ class KernelStats:
     ``launches_by_route`` grows where the wrapper launches its CUDA
     kernels, and nowhere else, by the number of ``__global__`` kernels
     that call put on the device, under the route that took the call
-    (``"cuda_core"`` or ``"tensor_core"``; ``"chunked"`` for the RG-LRU
-    scan, which has one); ``launches`` is their sum.
+    (``"cuda_core"``, ``"tensor_core"`` or flash's ``"short"``;
+    ``"chunked"`` for the RG-LRU scan, which has one); ``launches`` is
+    their sum.
     ``cpu_calls`` counts calls that took the plain PyTorch version
     because the tensors lay on the CPU.  Updates are locked: serving
     runners call the wrappers from several threads.

@@ -27,12 +27,13 @@
 // 2 * B * S * (H + Hkv) * D elements moved, about 50 flops per bf16 byte,
 // below the ~295 at which the tensor cores rather than memory limit.
 //
-// Two routes, chosen by dtype and head dim before the launch (never
+// Three routes, chosen by dtype and shape before the launch (never
 // after a failure): `flash_attention_fwd`'s `route` argument is 0 (by
-// shape), 1 (CUDA cores) or 2 (tensor cores), and it returns -1 where a
-// forced route cannot take the shape.
+// shape), 1 (CUDA cores), 2 (tensor cores) or 3 (short sequences), and
+// it returns -1 where a forced route cannot take the shape.
 //
-// CUDA-core route (fp32, and head dim 8): the fp32 kernel below.  It is
+// CUDA-core route (fp32 and head dim 8 beyond the short route's
+// limits): the fp32 kernel below.  It is
 // limited by issuing shared-memory loads, so the inner products read q,
 // k, v and p as 16-byte vectors (rows padded to keep them aligned and the
 // banks distinct) and each lane owns 4-column groups of the output.  At
@@ -66,6 +67,37 @@
 // apply the elementwise mask.  At D = 256 the O accumulator is 128 fp32
 // registers a thread; shared memory is 165 KB (Q tile + 2 groups x 2
 // stages x (K + V)), one block per SM.
+//
+// Short route (fp32, Sq and Sk <= 16, D = 8, 16 or 32): `flash_short_kernel`,
+// attn-tiny's path (2 heads of 16 over 16, 8 or 4 positions, B up to
+// 256).  There the work is ~2 KB per (b, h) and ~4 M FMAs for B = 256:
+// the card's bound is bytes (~0.6 us at B = 256), under the cost of one
+// launch, so what counts is the launch, the trips to device memory and
+// the threads that do nothing.  The CUDA-core kernel spends its time on
+// all three: 64 query rows and a 32-row KV tile per block, so at S = 16
+// three quarters of the threads load zeros and score masked rows; scalar
+// loads of Q and then of K/V with two block barriers between them (two
+// dependent trips to device memory); 256 threads per (b, h).  So: one
+// warp per (b, h) and
+// its whole (<= 16-row) query tile, four warps a block on consecutive
+// (b, h), so B = 256, H = 2 is 128 blocks, one wave.  The warp issues all
+// of its loads before any arithmetic: K and V by 16-byte cp.async into
+// its own slice of shared memory (rows past Sk zero-filled), each lane's
+// query row by 16-byte loads into registers; then one wait and a
+// __syncwarp, and no block barrier at all.  Lane 2r + t owns query row r
+// and the key slots t, t + 2, ..., t + 14: its 8 scores, their max and
+// sum (one shuffle each with its partner lane) and its share of P V
+// stay in registers; the partner lanes add their halves of the output
+// row by shuffles and each writes 16 bytes at a time.  Sk <= 16 is one
+// tile, so the softmax needs no rescaling.  Masking is by position
+// against the true Sq and Sk, and a masked slot contributes an exact 0
+// (p = exp(-0.7 FLT_MAX - m) = 0, zero-filled V), in a slot order that
+// does not depend on Sk: a call padded to 16 with zeros gives the same
+// bits as the same call unpadded.  Products and sums stay fp32 on the
+// CUDA cores (TF32 misses the 2e-5 tolerance; the FMAs take ~0.1 us).
+// Splitting a (b, h) over two warps of 8 rows, which halves each warp's
+// arithmetic, measured slower at every attn-tiny shape: the time above
+// an empty kernel's is the memory round trip, not the FMAs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -607,22 +639,187 @@ bool tc_takes(int dtype, int D) {
                         D == 256);
 }
 
+// ---------------------------------------------------------------------
+// short route (fp32, Sq and Sk <= 16)
+// ---------------------------------------------------------------------
+constexpr int kShortS = 16;              // most query rows, most keys
+constexpr int kShortWarps = 4;           // warps a block, one (b, h) each
+constexpr int kShortSlots = kShortS / 2;  // key slots a lane owns
+
+template <int D>
+__global__ void __launch_bounds__(32 * kShortWarps)
+flash_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   int BH, int Sq, int Sk, int H, int Hkv, int causal,
+                   int window, float scale) {
+  // row stride D + 4: 16-byte aligned, and the two rows one load reads
+  // (slot 2i for even lanes, 2i + 1 for odd ones) on distinct banks
+  constexpr int RS = D + 4;
+  constexpr int C4 = D / 4;               // 16-byte pieces of a row
+  constexpr int HALF = D / 2;             // output columns a lane writes
+  static_assert(kShortS * C4 % 32 == 0, "K/V copies must split evenly");
+  static_assert(HALF % 4 == 0, "a lane writes whole 16-byte pieces");
+  __shared__ __align__(16) float kv_smem[kShortWarps][2][kShortS * RS];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int item = blockIdx.x * kShortWarps + warp;
+  if (item >= BH) return;                 // no block barrier follows
+  const int b = item / H, h = item % H;
+  const int hk = h / (H / Hkv);
+  float* ks = kv_smem[warp][0];
+  float* vs = kv_smem[warp][1];
+
+  // every load first: K and V of (b, hk) into this warp's shared memory
+  // (rows >= Sk zero-filled), then this lane's query row into registers
+  const size_t kv_stride = (size_t)Hkv * D;
+  const float* kb = k + ((size_t)b * Sk * Hkv + hk) * D;
+  const float* vb = v + ((size_t)b * Sk * Hkv + hk) * D;
+#pragma unroll
+  for (int it = 0; it < kShortS * C4 / 32; ++it) {
+    const int i = lane + 32 * it;
+    const int r = i / C4, c = i % C4;
+    const bool ok = r < Sk;
+    const size_t off = (size_t)(ok ? r : 0) * kv_stride + c * 4;
+    mma::cp_async16(ks + r * RS + c * 4, kb + off, ok ? 16 : 0);
+    mma::cp_async16(vs + r * RS + c * 4, vb + off, ok ? 16 : 0);
+  }
+  mma::cp_async_commit();
+
+  const int r = lane / 2, t = lane % 2;   // query row r, key slots t + 2i
+  float qr[D];
+  const float4* q4 = reinterpret_cast<const float4*>(
+      q + ((size_t)(b * Sq + r) * H + h) * D);
+#pragma unroll
+  for (int c = 0; c < C4; ++c) {
+    const float4 x = r < Sq ? __ldg(q4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[4 * c + 0] = x.x;
+    qr[4 * c + 1] = x.y;
+    qr[4 * c + 2] = x.z;
+    qr[4 * c + 3] = x.w;
+  }
+  mma::cp_async_wait<0>();
+  __syncwarp();
+
+  // scores of slots t, t + 2, ..., t + 14, masked by position
+  float s[kShortSlots];
+#pragma unroll
+  for (int i = 0; i < kShortSlots; ++i) {
+    const int j = 2 * i + t;
+    const float* krow = ks + j * RS;
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < C4; ++c) {
+      const float4 k4 = ld4(krow + 4 * c);
+      dot = fmaf(qr[4 * c + 0], k4.x, dot);
+      dot = fmaf(qr[4 * c + 1], k4.y, dot);
+      dot = fmaf(qr[4 * c + 2], k4.z, dot);
+      dot = fmaf(qr[4 * c + 3], k4.w, dot);
+    }
+    bool keep = j < Sk;
+    if (causal) keep = keep && j <= r;
+    if (window > 0) keep = keep && j > r - window;
+    s[i] = keep ? dot * scale : kNegInf;
+  }
+  // one tile holds every key: the softmax needs no rescaling
+  float m = kNegInf;
+#pragma unroll
+  for (int i = 0; i < kShortSlots; ++i) m = fmaxf(m, s[i]);
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  float l = 0.f;
+#pragma unroll
+  for (int i = 0; i < kShortSlots; ++i) {
+    s[i] = expf(s[i] - m);
+    l += s[i];
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+
+  // this lane's slots of P V, every column
+  float acc[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kShortSlots; ++i) {
+    const float* vrow = vs + (2 * i + t) * RS;
+#pragma unroll
+    for (int c = 0; c < C4; ++c) {
+      const float4 v4 = ld4(vrow + 4 * c);
+      acc[4 * c + 0] = fmaf(s[i], v4.x, acc[4 * c + 0]);
+      acc[4 * c + 1] = fmaf(s[i], v4.y, acc[4 * c + 1]);
+      acc[4 * c + 2] = fmaf(s[i], v4.z, acc[4 * c + 2]);
+      acc[4 * c + 3] = fmaf(s[i], v4.w, acc[4 * c + 3]);
+    }
+  }
+  // the partner lanes add their halves: lane t keeps columns
+  // [t * HALF, (t + 1) * HALF) and sends the other half
+  float out[HALF];
+#pragma unroll
+  for (int c = 0; c < HALF; ++c) {
+    const float mine = t ? acc[HALF + c] : acc[c];
+    const float other = t ? acc[c] : acc[HALF + c];
+    out[c] = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+  }
+  if (r < Sq) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    float4* o4 = reinterpret_cast<float4*>(
+        o + ((size_t)(b * Sq + r) * H + h) * D + t * HALF);
+#pragma unroll
+    for (int c = 0; c < HALF / 4; ++c)
+      o4[c] = make_float4(out[4 * c + 0] * inv, out[4 * c + 1] * inv,
+                          out[4 * c + 2] * inv, out[4 * c + 3] * inv);
+  }
+}
+
+template <int D>
+int launch_short(const void* q, const void* k, const void* v, void* o,
+                 int B, int Sq, int Sk, int H, int Hkv, int causal,
+                 int window, float scale, cudaStream_t stream) {
+  const int BH = B * H;
+  const dim3 grid((BH + kShortWarps - 1) / kShortWarps);
+  flash_short_kernel<D><<<grid, 32 * kShortWarps, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), BH, Sq, Sk, H,
+      Hkv, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_short(int D, const void* q, const void* k, const void* v,
+                   void* o, int B, int Sq, int Sk, int H, int Hkv,
+                   int causal, int window, float scale, cudaStream_t s) {
+  switch (D) {
+    case 8: return launch_short<8>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+    case 16: return launch_short<16>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+    case 32: return launch_short<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+    default: return -1;
+  }
+}
+
+bool short_takes(int dtype, int Sq, int Sk, int D) {
+  return dtype == 0 && Sq >= 1 && Sq <= kShortS && Sk >= 1 &&
+         Sk <= kShortS && (D == 8 || D == 16 || D == 32);
+}
+
 }  // namespace
 
 // Returns 0 on success, the cudaError_t of a refused launch, or -1 for a
-// head dim / dtype the chosen route is not built for.  dtype: 0 fp32,
-// 1 bf16.  route: 0 by shape (tensor cores for bf16 with D = 16..256,
-// else CUDA cores), 1 CUDA cores, 2 tensor cores.
+// shape / dtype the chosen route is not built for.  dtype: 0 fp32, 1
+// bf16.  route: 0 by shape (tensor cores for bf16 with D = 16..256, the
+// short route for fp32 with Sq, Sk <= 16 and D = 8, 16 or 32, else CUDA
+// cores), 1 CUDA cores, 2 tensor cores, 3 short.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int Sq,
                                    int Sk, int H, int Hkv, int D, int causal,
                                    int window, float scale, int dtype,
                                    int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 0) route = tc_takes(dtype, D) ? 2 : 1;
+  if (route == 0)
+    route = tc_takes(dtype, D) ? 2 : short_takes(dtype, Sq, Sk, D) ? 3 : 1;
   if (route == 2) {
     if (!tc_takes(dtype, D)) return -1;
     return dispatch_tc(D, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+  }
+  if (route == 3) {
+    if (!short_takes(dtype, Sq, Sk, D)) return -1;
+    return dispatch_short(D, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
   }
   if (route != 1) return -1;
   if (dtype == 0)

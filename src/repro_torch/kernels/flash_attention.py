@@ -5,12 +5,14 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 ``csrc/flash_attention.cu`` (built for sm_90a by :mod:`.build`); its
 source note says what bounds it on an H100 and how the design answers.
 
-The library has two routes, chosen by dtype and head dim before the
+The library has three routes, chosen by dtype and shape before the
 launch (:func:`route`): bf16 with a head dim of 16..256 runs the
-tensor-core kernel (``mma.sync``), fp32 and head dim 8 the CUDA-core
+tensor-core kernel (``mma.sync``); fp32 with at most 16 query rows and
+keys and a head dim of 8, 16 or 32 (attn-tiny) the short-sequence
+kernel, one warp per (batch, head); every other shape the CUDA-core
 kernel.  :func:`flash_attention` always lets the shape decide;
 :func:`launch` can force a route, which only ``chip_smoke.py`` and the
-card tests do, to time and check both kernels on the same inputs.
+card tests do, to time and check the kernels on the same inputs.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it computes the plain version, :func:`.ref.flash_attention_ref`.
@@ -29,12 +31,18 @@ from .ref import flash_attention_ref
 stats = build.KernelStats()
 
 
-def route(dtype: str, head_dim: int) -> str:
-    """The route the C entry takes by shape: ``"tensor_core"`` for bf16
-    with a head dim mma can take, else ``"cuda_core"`` (fp32 needs more
-    than TF32's precision; head dim 8 is below mma's depth of 16)."""
+def route(dtype: str, head_dim: int, sq: int, sk: int) -> str:
+    """The route the C entry takes by shape for ``sq`` query rows and
+    ``sk`` keys: ``"tensor_core"`` for bf16 with a head dim mma can take;
+    ``"short"`` for fp32 with both lengths in 1..16 and a head dim of 8,
+    16 or 32; else ``"cuda_core"`` (fp32 needs more than TF32's
+    precision; head dim 8 is below mma's depth of 16)."""
     if dtype == "bfloat16" and head_dim in build.TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
+    if (dtype == "float32" and head_dim in build.SHORT_HEAD_DIMS
+            and 1 <= sq <= build.SHORT_MAX_SEQ
+            and 1 <= sk <= build.SHORT_MAX_SEQ):
+        return "short"
     return "cuda_core"
 
 
@@ -69,15 +77,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 def launch(q, k, v, *, causal: bool, window: int, force: str = ""):
     """Launch the CUDA kernel on checked CUDA tensors.  ``force`` ``""``
-    lets the shape decide (:func:`route`); ``"cuda_core"`` or
-    ``"tensor_core"`` forces a route, and one that cannot take the shape
-    raises."""
+    lets the shape decide (:func:`route`); ``"cuda_core"``,
+    ``"tensor_core"`` or ``"short"`` forces a route, and one that cannot
+    take the shape raises."""
     build.refuse_grad("flash_attention", q, k, v)
     code = build.route_code("flash_attention", force)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dtype = str(q.dtype).removeprefix("torch.")
-    taken = force or route(dtype, D)
+    taken = force or route(dtype, D, Sq, Sk)
     q, k, v = build.aligned(q), build.aligned(k), build.aligned(v)
     out = torch.empty_like(q)
     lib = build.library("flash_attention")

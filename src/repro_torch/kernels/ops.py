@@ -7,8 +7,10 @@ back; a non-causal call with unaligned shapes raises; the decode cache
 is padded to a ``block_kv`` multiple; ``ssd_scan`` needs S to be a chunk
 multiple; ``rglru_scan`` halves its blocks until they divide S and W.
 Block sizes keep their meaning for padding and validation only: the
-CUDA kernels choose their own tiles.  One divergence: ``ssd_scan``
-returns ``(y, final_state)`` where the reference returns y.
+CUDA kernels choose their own tiles.  Two divergences: ``ssd_scan``
+returns ``(y, final_state)`` where the reference returns y, and on a
+card a causal flash call that the short route takes is not padded
+(:func:`flash_pads`; same output bits, no copies).
 
 Each call runs the CUDA kernel for tensors on a card and the kernel's
 plain version for tensors on the CPU (see the kernel modules).
@@ -20,6 +22,7 @@ import torch
 
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import flash_attention as _flash_attention
+from .flash_attention import route as _flash_route
 from .rglru_scan import rglru_scan as _rglru_scan
 from .ssd_scan import ssd_scan  # noqa: F401  (no padding to add)
 
@@ -34,14 +37,31 @@ def _pad_to(x, multiple: int, axis: int):
     return torch.cat([x, x.new_zeros(shape)], dim=axis), n
 
 
+def flash_pads(device: str, dtype: str, causal: bool, sq: int, sk: int,
+               head_dim: int) -> bool:
+    """Whether :func:`flash_attention` pads a call's sequences to the
+    reference's block rule: always, but for a causal call on a card whose
+    shapes flash's short route takes.  That kernel masks rows and keys
+    past the true lengths by position, and a masked key adds an exact
+    zero in a slot order that does not depend on the length, so the
+    unpadded call gives the padded call's bits without its copies.  The
+    CPU keeps the reference's rule."""
+    return not (device == "cuda" and causal
+                and _flash_route(dtype, head_dim, sq, sk) == "short")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 512, block_kv: int = 512):
     """Flash attention with automatic sequence padding.
 
     Padded KV positions are masked by causality (query padding rows are
     discarded); for non-causal use the kernel requires aligned shapes.
+    Calls :func:`flash_pads` exempts go to the kernel as they are.
     """
     B, Sq, H, D = q.shape
+    if not flash_pads(q.device.type, str(q.dtype).removeprefix("torch."),
+                      causal, Sq, k.shape[1], D):
+        return _flash_attention(q, k, v, causal=causal, window=window)
     bq = min(block_q, max(16, 1 << (Sq - 1).bit_length() if Sq < block_q else block_q))
     bkv = min(block_kv, max(16, 1 << (k.shape[1] - 1).bit_length()
                             if k.shape[1] < block_kv else block_kv))

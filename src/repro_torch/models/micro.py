@@ -12,10 +12,11 @@ models).  Three registered micro models:
   ``x = tanh(x @ w + c)`` per layer in fp32 (:func:`mlp_step`);
 * ``attn-tiny`` — one causal attention over a short sequence
   (:func:`attn_step`).  On a card it runs the hand-written CUDA flash
-  kernel through ``kernels.ops.flash_attention`` (fp32, head dim 16:
-  the CUDA-core ``flash_fwd_kernel``); on the CPU the wrapper computes
-  its plain version, ``kernels.ref.flash_attention_ref``, which is what
-  the reference's step calls.
+  kernel through ``kernels.ops.flash_attention`` (fp32, head dim 16,
+  S = 16, 8 or 4: the short route's ``flash_short_kernel``, unpadded);
+  on the CPU the wrapper computes its plain version,
+  ``kernels.ref.flash_attention_ref``, which is what the reference's
+  step calls.
 
 Every factory returns a ``make_runner(t, b)`` callable: the plane's
 ``RunnerFactory`` contract.  ``t`` is the instance's unit budget; the

@@ -9,7 +9,9 @@ test takes the ``cuda`` fixture, which skips without a card; there, run
 are ``tests/test_kernels.py``'s (atol = rtol = 2e-5 fp32, 2e-2 bf16),
 plus head dim 8, the serving shapes (head dim 64 at GQA groups 1 and 7
 for seamless-m4t-medium and internvl2-1b), and attn-tiny's flash
-shapes (fp32, head dim 16, S = 16, 8, 4, B up to 256).
+shapes (fp32, head dim 16, S = 16, 8, 4, B up to 256) on flash's short
+route: its limits, unpadded calls against padded ones bit for bit, and
+the CUDA-core kernel forced beside it.
 """
 
 import numpy as np
@@ -157,9 +159,9 @@ def test_cuda_rglru_scan_matches_plain(cuda, B, S, W, dtype):
 # --------------------------------------------------------------------- #
 def _routes(rule):
     """The routes that take a case: the CUDA cores take every shape the
-    wrapper accepts, the tensor cores those of the rule."""
-    return ("cuda_core", "tensor_core") if rule == "tensor_core" \
-        else ("cuda_core",)
+    wrapper accepts, the tensor cores (or flash's short route) those of
+    the rule."""
+    return ("cuda_core",) if rule == "cuda_core" else ("cuda_core", rule)
 
 
 FLASH_ROUTE_GRID = [
@@ -193,7 +195,7 @@ def test_cuda_flash_attention_routes_match_plain(cuda, B, S, H, Hkv, D,
     got = ops.flash_attention(q, k, v, causal=True, window=window,
                               block_q=blk, block_kv=blk)
     _close(got.cpu(), want.cpu().float().numpy(), dtype)
-    rule = flash_mod.route(dtype, D)
+    rule = flash_mod.route(dtype, D, S, S)
     for r in _routes(rule):
         out = flash_mod.launch(q, k, v, causal=True, window=window, force=r)
         _close(out.cpu(), want.cpu().float().numpy(), dtype)
@@ -302,20 +304,134 @@ def test_cuda_rglru_scan_chunk_edges_match_plain(cuda, B, S, W, dtype):
 @pytest.mark.parametrize("B", (1, 16, 256))
 @pytest.mark.parametrize("S", (16, 8, 4))
 def test_cuda_flash_attention_attn_tiny_shapes(cuda, B, S):
-    """attn-tiny's rungs (S = 16, 8, 4; the wrapper pads 8 and 4 to 16)
-    at the serving batches, through the wrapper and the CUDA-core route
-    forced, against the plain version."""
+    """attn-tiny's rungs (S = 16, 8, 4; on a card unpadded) at the
+    serving batches: the wrapper's one launch lands on the short route;
+    it, the short route and the CUDA-core route forced match the plain
+    version, and short and CUDA cores agree within fp32's 2e-5."""
     from repro_torch.kernels import flash_attention as flash_mod
     q, k, v = (_t(x, "float32").to(cuda) for x in _inputs(
         11, (B, S, 2, 16), (B, S, 2, 16), (B, S, 2, 16)))
     want = ref.flash_attention_ref(q, k, v, causal=True).cpu().numpy()
-    assert flash_mod.route("float32", 16) == "cuda_core"
+    assert flash_mod.route("float32", 16, S, S) == "short"
     before = dict(KERNEL_STATS["flash_attention"].launches_by_route)
-    _close(ops.flash_attention(q, k, v, causal=True).cpu(), want, "float32")
-    after = KERNEL_STATS["flash_attention"].launches_by_route
-    assert after.get("cuda_core", 0) == before.get("cuda_core", 0) + 1
-    out = flash_mod.launch(q, k, v, causal=True, window=0, force="cuda_core")
-    _close(out.cpu(), want, "float32")
+    got = ops.flash_attention(q, k, v, causal=True)
+    _close(got.cpu(), want, "float32")
+    after = dict(KERNEL_STATS["flash_attention"].launches_by_route)
+    before["short"] = before.get("short", 0) + 1
+    assert after == before
+    short = flash_mod.launch(q, k, v, causal=True, window=0, force="short")
+    assert torch.equal(short, got)
+    old = flash_mod.launch(q, k, v, causal=True, window=0,
+                           force="cuda_core")
+    _close(old.cpu(), want, "float32")
+    _close(short.cpu(), old.cpu().numpy(), "float32")
+
+
+@pytest.mark.parametrize("B", (1, 16, 256))
+@pytest.mark.parametrize("S", (8, 4))
+def test_cuda_flash_unpadded_equals_padded_bit_for_bit(cuda, B, S):
+    """The wrapper's unpadded call at attn-tiny's short rungs gives the
+    bits of the same call padded with zeros to 16 (the reference's rule)
+    on the short route and by shape."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = (_t(x, "float32").to(cuda) for x in _inputs(
+        15, (B, S, 2, 16), (B, S, 2, 16), (B, S, 2, 16)))
+    assert not ops.flash_pads("cuda", "float32", True, S, S, 16)
+    got = ops.flash_attention(q, k, v, causal=True)
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((B, 16 - S, 2, 16))], 1)
+
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    for force in ("short", ""):
+        padded = flash_mod.launch(qp, kp, vp, causal=True, window=0,
+                                  force=force)
+        assert torch.equal(got, padded[:, :S])
+
+
+FLASH_SHORT_GRID = [
+    # B, Sq, Sk, H, Hkv, D, causal, window: the short route's limits
+    (3, 16, 16, 4, 1, 32, True, 0),
+    (3, 16, 16, 4, 2, 8, True, 5),
+    (2, 1, 16, 2, 2, 16, True, 0),
+    (2, 1, 1, 2, 2, 16, True, 0),
+    (2, 16, 3, 2, 1, 16, True, 0),
+    (2, 16, 16, 2, 2, 16, False, 0),
+    (301, 13, 13, 3, 1, 16, True, 0),    # a block with an idle warp
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", FLASH_SHORT_GRID)
+def test_cuda_flash_short_route_limits_match_plain(cuda, B, Sq, Sk, H, Hkv,
+                                                   D, causal, window):
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = (_t(x, "float32").to(cuda) for x in _inputs(
+        16, (B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   window=window).cpu().numpy()
+    assert flash_mod.route("float32", D, Sq, Sk) == "short"
+    outs = {}
+    for force in ("short", "cuda_core"):
+        outs[force] = flash_mod.launch(q, k, v, causal=causal,
+                                       window=window, force=force)
+        _close(outs[force].cpu(), want, "float32")
+    assert torch.equal(outs["short"], flash_mod.launch(
+        q, k, v, causal=causal, window=window))
+    _close(ops.flash_attention(q, k, v, causal=causal, window=window,
+                               block_q=16, block_kv=16).cpu(), want,
+           "float32")
+
+
+@pytest.mark.parametrize("dtype,Sq,Sk,D", [
+    ("float32", 17, 17, 16), ("float32", 16, 17, 16),
+    ("float32", 17, 16, 16), ("float32", 16, 16, 64),
+    ("bfloat16", 16, 16, 16), ("bfloat16", 8, 8, 8)])
+def test_cuda_flash_short_route_refuses_past_its_limits(cuda, dtype, Sq, Sk,
+                                                        D):
+    """One past the limits the short route, forced, raises and counts no
+    launch; by shape the call takes the CUDA cores or the tensor cores."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    q, k, v = (_t(x, dtype).to(cuda) for x in _inputs(
+        17, (2, Sq, 2, D), (2, Sk, 2, D), (2, Sk, 2, D)))
+    assert flash_mod.route(dtype, D, Sq, Sk) != "short"
+    before = dict(KERNEL_STATS["flash_attention"].launches_by_route)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        flash_mod.launch(q, k, v, causal=True, window=0, force="short")
+    assert dict(KERNEL_STATS["flash_attention"].launches_by_route) == before
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    _close(flash_mod.launch(q, k, v, causal=True, window=0).cpu(),
+           want.cpu().float().numpy(), dtype)
+
+
+def test_cuda_short_route_is_flash_only(cuda):
+    """The decode and SSD entries refuse the short route's code."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    q, kc, x, Bi = (_t(a, "float32").to(cuda) for a in _inputs(
+        18, (1, 1, 2, 16), (1, 64, 2, 16), (1, 64, 2, 8), (1, 64, 1, 16)))
+    lengths = torch.full((1,), 64, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        decode_mod.launch(q, kc, kc, lengths, force="short")
+    dt = torch.full((1, 64, 2), 0.1, device=cuda)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        ssd_mod.launch(x, dt, torch.zeros(2, device=cuda), Bi, Bi, chunk=16,
+                       force="short")
+
+
+def test_cuda_flash_never_computes_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor never reaches ``flash_attention_ref``: at every
+    attn-tiny rung the wrapper launches a kernel or raises."""
+    from repro_torch.kernels import flash_attention as flash_mod
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(flash_mod, "flash_attention_ref", refuse)
+    for S in (16, 8, 4):
+        q = _t(_inputs(19, (4, S, 2, 16))[0], "float32").to(cuda)
+        assert ops.flash_attention(q, q, q, causal=True).shape == q.shape
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, q, q, causal=False)
 
 
 @pytest.mark.parametrize("name", ("mlp-tiny", "mlp", "attn-tiny"))

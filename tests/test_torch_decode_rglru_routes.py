@@ -81,11 +81,13 @@ def test_decode_splits_one_per_tile(S, want):
 
 
 def test_route_codes_name_each_kernels_two_routes():
-    assert build.ROUTE_CODES == {"cuda_core": 1, "tensor_core": 2}
+    assert build.ROUTE_CODES == {"cuda_core": 1, "tensor_core": 2,
+                                 "short": 3}
     assert build.ROUTE_BY_SHAPE == 0
     assert build.route_code("decode_attention", "") == 0
     assert build.route_code("decode_attention", "cuda_core") == 1
     assert build.route_code("decode_attention", "tensor_core") == 2
+    assert build.route_code("flash_attention", "short") == 3
 
 
 def _launch_args(mod):

@@ -50,16 +50,28 @@ def one_cpu_thread():
 # --------------------------------------------------------------------- #
 # route rules
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("dtype,D,want", [
-    ("bfloat16", 256, "tensor_core"),    # gemma3-1b, recurrentgemma-9b
-    ("bfloat16", 16, "tensor_core"),
-    ("bfloat16", 64, "tensor_core"),
-    ("bfloat16", 8, "cuda_core"),        # below mma's depth of 16
-    ("float32", 256, "cuda_core"),       # TF32 misses fp32's 2e-5
-    ("float32", 8, "cuda_core"),
+@pytest.mark.parametrize("dtype,D,sq,sk,want", [
+    ("bfloat16", 256, 512, 512, "tensor_core"),  # gemma3-1b, recurrentgemma
+    ("bfloat16", 16, 64, 64, "tensor_core"),
+    ("bfloat16", 64, 512, 512, "tensor_core"),
+    ("bfloat16", 16, 16, 16, "tensor_core"),   # short bf16: tensor cores
+    ("bfloat16", 8, 64, 64, "cuda_core"),      # below mma's depth of 16
+    ("bfloat16", 8, 16, 16, "cuda_core"),      # the short route is fp32
+    ("float32", 256, 512, 512, "cuda_core"),   # TF32 misses fp32's 2e-5
+    ("float32", 8, 64, 64, "cuda_core"),
+    ("float32", 16, 16, 16, "short"),          # attn-tiny's three rungs
+    ("float32", 16, 8, 8, "short"),
+    ("float32", 16, 4, 4, "short"),
+    ("float32", 8, 1, 16, "short"),            # the route's limits
+    ("float32", 32, 16, 1, "short"),
+    ("float32", 16, 17, 17, "cuda_core"),      # one past them
+    ("float32", 16, 16, 17, "cuda_core"),
+    ("float32", 16, 17, 16, "cuda_core"),
+    ("float32", 64, 16, 16, "cuda_core"),
+    ("float32", 16, 0, 16, "cuda_core"),
 ])
-def test_flash_route_rule(dtype, D, want):
-    assert flash_mod.route(dtype, D) == want
+def test_flash_route_rule(dtype, D, sq, sk, want):
+    assert flash_mod.route(dtype, D, sq, sk) == want
 
 
 @pytest.mark.parametrize("dtype,P,N,chunk,want", [
