@@ -93,6 +93,29 @@ non-zero:
    drop; T = 4), and prints the drops; two ``apply_moe`` calls on one
    input are bit-identical (the combine uses no atomics), and each is
    timed at the serve prefill (4 × 512 tokens) and a B = 4 decode step.
+   **distributed** — the port's distribution layer (no kernel: the
+   reference's sharded steps, EP and compression are plain jnp):
+   * full-width gemma3-1b's bf16 decode (a 64-token prompt, 4 steps)
+     with its parameters and cache laid out by ``params_pspecs`` and
+     ``cache_pspecs`` as DTensors on a (1, 1) ("data", "model") mesh of
+     a one-rank NCCL group: logits and cache bit for bit the plain
+     step's;
+   * ``compressed_psum`` over that group on a fp32 tree of gemma3-1b's
+     parameter shapes (999,885,952 values, 4 GB): bit for bit the card's
+     own quantize → dequantize, whose quantization is the CPU's on a
+     2^20-value slice; its device time beside the bound (8 bytes a
+     value at the HBM rate);
+   * expert parallelism: :data:`EP_RANKS` processes with a gloo group
+     (NCCL refuses two ranks on one device), each holding 40 of
+     deepseek-v2-236b's 160 routed experts at full width in fp32 (3.8
+     GB), run ``apply_moe_ep`` on B = 4 × S = 512 tokens over a mesh of
+     4 "model" ranks: dropless (:data:`DROPLESS_CF`) within 1e-5 of
+     the largest |y| of one process's ``apply_moe`` on the whole layer
+     (15.1 GB); at the published 1.25, on tokens pushed toward expert 0,
+     some assignments drop and each rank's dispatch (kept set, slots,
+     gates) equals the CPU's for the same router output.  gloo carries
+     the tensors through the host, so the times say nothing about EP
+     over NVLink.
 4. **trace** — per path, where a full-width bf16 step spends its time:
    one 512-token prefill and 4 decode steps at batch 1, traced with
    ``torch.profiler``: wall time, host time to enqueue, device busy time,
@@ -179,7 +202,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 MEM_BW = 3.35e12                       # H100 SXM HBM3 bytes/s
-PEAK = {"float32": 67e12, "bfloat16": 989e12}   # fp32 CUDA cores; bf16 dense
+# fp32 and fp64 on the CUDA cores (fp64 outside the tensor cores), bf16
+# dense on the tensor cores: NVIDIA's H100 SXM data sheet
+PEAK = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 SERVE_SECONDS = 8.0
 # trace phase: one prefill of TRACE_PROMPT tokens, then TRACE_DECODE steps
@@ -205,6 +230,15 @@ CUT = {"deepseek-v2-236b": {"n_repeats": 2}}
 # the model check's MoE capacity factor: >= n_experts / top_k (160 / 6),
 # so no assignment is dropped and prefill + decode equals the forward
 DROPLESS_CF = 32.0
+# distributed phase: gemma3-1b's prompt, decode steps and cache slots on
+# the (1, 1) NCCL mesh; the values of its full fp32 parameter tree;
+# expert parallelism of deepseek-v2-236b's MoE layer over EP_RANKS gloo
+# processes on the card (40 of 160 experts each), B x S tokens, the
+# skewed input's push toward expert 0, the weights' seed
+DIST_PROMPT, DIST_DECODE, DIST_MAX_LEN = 64, 4, 128
+DIST_PSUM_VALUES = 999_885_952
+EP_RANKS, EP_BATCH, EP_SEQ, EP_PUSH, EP_SEED = 4, 4, 512, 10.0, 11
+EP_TIMEOUT_S = 600.0
 ROUTES = ("cuda_core", "tensor_core", "short", "chunked")
 # the host calls that put a kernel on the device, as the profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -321,6 +355,7 @@ def main(argv=None) -> int:
     for name in PATHS:
         emit({"phase": "model", **phase_model(torch, name)})
     emit({"phase": "moe", **phase_moe(torch)})
+    emit({"phase": "distributed", **phase_distributed(torch)})
     for name in PATHS:
         emit({"phase": "trace", **phase_trace(torch, name)})
 
@@ -515,9 +550,15 @@ def kernel_breakdown(torch, fn, iters: int = 20) -> dict:
     return {name: ms / iters for name, ms in by_name.most_common()}
 
 
-def _bound(bytes_moved: float, flops: float, dtype_name: str):
+def _bound(bytes_moved: float, flops, dtype_name: str):
+    """(least ms, what bounds it): the bytes over the HBM rate, or the
+    operations over the peak of their type.  ``flops`` is a count at
+    ``dtype_name``'s peak, or {dtype name: count} for a kernel that
+    computes in several precisions on separate units (the slowest sets
+    the bound)."""
     t_bytes = bytes_moved / MEM_BW
-    t_ops = flops / PEAK[dtype_name]
+    by_type = flops if isinstance(flops, dict) else {dtype_name: flops}
+    t_ops = max(n / PEAK[t] for t, n in by_type.items())
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -918,8 +959,16 @@ def phase_kernels(torch):
                 elem = x.element_size()
                 nbytes = (elem * (2 * B * S * H * P + 2 * B * S * G * N)
                           + 4 * (B * S * H + H + B * H * P * N))
+                chunks = B * H * (S // Q)
                 flops = (2.0 * (Q * Q * N + Q * Q * P + 2 * Q * N * P)
-                         * B * H * (S // Q))
+                         * chunks)
+                if dt == "float32":
+                    # ssd_kernel forms the scores (Q²N), the intra-chunk
+                    # sum (Q²P) and the inter-chunk term (QNP) in fp64;
+                    # only the state update (QNP) is fp32
+                    flops = {"float64": 2.0 * (Q * Q * N + Q * Q * P
+                                               + Q * N * P) * chunks,
+                             "float32": 2.0 * Q * N * P * chunks}
                 bound_ms, bound_by = _bound(nbytes, flops, dt)
                 wrapper = time_ms(torch, lambda: ops.ssd_scan(
                     *args, chunk=Q), iters=50)
@@ -1280,6 +1329,332 @@ def phase_moe(torch, name: str = "deepseek-v2-236b"):
     if failures:
         emit({"phase": "moe", **rep})
         raise AssertionError(f"{name}: " + "; ".join(failures))
+    return rep
+
+
+# --------------------------------------------------------------------- #
+# phase 3c: distribution — a one-rank NCCL mesh, compression, 4-rank EP
+# --------------------------------------------------------------------- #
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_distributed(torch):
+    """gemma3-1b's bf16 decode with DTensor parameters and cache on a
+    (1, 1) mesh of a one-rank NCCL group, bit for bit the plain step's;
+    ``compressed_psum`` over that group on a full-size fp32 tree of
+    gemma3-1b's parameter shapes, bit for bit quantize → dequantize (and
+    the card's quantization the CPU's); then deepseek-v2-236b's MoE layer
+    at full width over :data:`EP_RANKS` gloo processes on the card."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    rep = {}
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1)
+    try:
+        rep["decode"] = _dist_decode(torch)
+        _free(torch)
+        rep["compressed_psum"] = _dist_psum(torch, dist.group.WORLD)
+        _free(torch)
+    finally:
+        dist.destroy_process_group()
+    rep["expert_parallel"] = _dist_ep(torch)
+    _free(torch)
+    failures = [f"{k}: {v['failure']}" for k, v in rep.items()
+                if v.get("failure")]
+    rep["seconds"] = time.perf_counter() - t0
+    if failures:
+        emit({"phase": "distributed", **rep})
+        raise AssertionError("distributed: " + "; ".join(failures))
+    return rep
+
+
+def _dist_decode(torch):
+    from repro_torch.distributed import (cache_pspecs, distribute_tree,
+                                         params_pspecs)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import decode_step, init_params, prefill
+    from repro_torch.training.tree import leaves_with_path, tree_map
+    dev = torch.device("cuda")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = _config("gemma3-1b").with_overrides(use_pallas_kernels=False)
+    gen = torch.Generator().manual_seed(5)
+    S, n_dec = DIST_PROMPT, DIST_DECODE
+    batch, dec = _prompt(torch, cfg, S, n_dec, gen)
+    rep = {"config": cfg.name, "mesh": [1, 1], "backend": "nccl",
+           "prompt": S, "max_len": DIST_MAX_LEN, "decode_steps": n_dec}
+    with torch.no_grad():
+        params = init_params(cfg, 0, device=dev)
+        _, cache = prefill(params, batch, cfg, max_len=DIST_MAX_LEN)
+        d_params = distribute_tree(params, params_pspecs(cfg, params, mesh),
+                                   mesh)
+        d_cache = distribute_tree(tree_map(torch.clone, cache),
+                                  cache_pspecs(cfg, cache, mesh), mesh)
+        equal, ms = [], {"plain": [], "dtensor": []}
+        for i in range(n_dec):
+            tok = dec[:, i:i + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, cache = decode_step(params, cache, tok, S + i, cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got, d_cache = decode_step(d_params, d_cache, tok, S + i, cfg)
+            got = got.full_tensor()
+            torch.cuda.synchronize()
+            ms["plain"].append((t1 - t0) * 1e3)
+            ms["dtensor"].append((time.perf_counter() - t1) * 1e3)
+            equal.append(_bits_equal(torch, got, want))
+        cache_equal = all(
+            _bits_equal(torch, g.full_tensor(), w)
+            for (_, g), (_, w) in zip(leaves_with_path(d_cache),
+                                      leaves_with_path(cache)))
+    rep.update({"logits_bit_equal": equal, "cache_bit_equal": cache_equal,
+                "finite": bool(torch.isfinite(want).all()),
+                "step_ms": ms})
+    print(f"chip_smoke: distributed decode on a (1, 1) NCCL mesh: logits "
+          f"bit-equal {equal}, cache {cache_equal}", flush=True)
+    if not (all(equal) and cache_equal and rep["finite"]):
+        rep["failure"] = "the DTensor decode differs from the plain step"
+    return rep
+
+
+def _dist_psum(torch, group):
+    from repro_torch.distributed import (compressed_psum, compressed_psum_tree,
+                                         dequantize_blockwise,
+                                         psum_bytes_saved,
+                                         quantize_blockwise)
+    from repro_torch.models.lm import param_specs
+    from repro_torch.training.tree import leaves_with_path, tree_map
+    dev = torch.device("cuda")
+    cfg = _config("gemma3-1b")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tree = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                          device=dev), param_specs(cfg))
+    n = sum(t.numel() for _, t in leaves_with_path(tree))
+    rep = {"config": cfg.name, "values": n, "dtype": "float32",
+           "leaves": len(leaves_with_path(tree))}
+    failures = []
+    if n != DIST_PSUM_VALUES:
+        failures.append(f"{n} values, not {DIST_PSUM_VALUES}")
+    # the card's compressed_psum = its own quantize → dequantize, per leaf
+    equal = True
+    for _, x in leaves_with_path(tree):
+        got = compressed_psum(x, group)
+        want = dequantize_blockwise(*quantize_blockwise(x), x.shape)
+        equal &= _bits_equal(torch, got, want)
+        del got, want
+    rep["bit_equal_to_quantize_dequantize"] = equal
+    if not equal:
+        failures.append("compressed_psum differs from quantize → dequantize")
+    # the card's quantization = the CPU's on a 2^20-value slice
+    x = tree["embed"].reshape(-1)[:1 << 20]
+    q, sc, pad = quantize_blockwise(x)
+    q_c, sc_c, pad_c = quantize_blockwise(x.cpu())
+    rep["slice_bit_equal_to_cpu"] = bool(
+        pad == pad_c and _bits_equal(torch, q.cpu(), q_c)
+        and _bits_equal(torch, sc.cpu(), sc_c))
+    if not rep["slice_bit_equal_to_cpu"]:
+        failures.append("the card's quantization differs from the CPU's")
+    t = time_ms(torch, lambda: compressed_psum_tree(tree, group), iters=3,
+                warmup=1)
+    full, comp = psum_bytes_saved(tree)
+    # the least work: read each value once, write each result once
+    bound_ms, bound_by = _bound(2 * full, 0.0, "float32")
+    rep.update({**t, "bound_ms": bound_ms, "bound_by": bound_by,
+                "fp32_bytes": full, "compressed_bytes": comp})
+    print(f"chip_smoke: compressed_psum of {n} fp32 values on one rank: "
+          f"{t['ms']:.3f} ms (bound {bound_ms:.3f} ms)", flush=True)
+    if failures:
+        rep["failure"] = "; ".join(failures)
+    return rep
+
+
+def _ep_layer(torch, cfg, experts, dev):
+    """deepseek-v2-236b's MoE layer in fp32 with seeded weights: the
+    router and shared experts (one seed), and routed experts ``experts``
+    stacked, expert e from seed EP_SEED + e whichever process makes it."""
+    moe, d = cfg.moe, cfg.d_model
+    ff, sff = moe.expert_ff, moe.expert_ff * moe.n_shared
+
+    def draw(seed, shape, fan_in):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev) / fan_in ** 0.5
+
+    params = {"router": draw(EP_SEED, (d, moe.n_experts), d),
+              "shared": {"gate": draw(EP_SEED + 1, (d, sff), d),
+                         "up": draw(EP_SEED + 2, (d, sff), d),
+                         "down": draw(EP_SEED + 3, (sff, d), sff)}}
+    for name in ("gate", "up", "down"):
+        params[name] = torch.empty(
+            (len(experts), ff, d) if name == "down" else
+            (len(experts), d, ff), device=dev)
+    for i, e in enumerate(experts):
+        base = EP_SEED + 16 + 3 * e
+        params["gate"][i] = draw(base, (d, ff), d)
+        params["up"][i] = draw(base + 1, (d, ff), d)
+        params["down"][i] = draw(base + 2, (ff, d), ff)
+    return params
+
+
+def _ep_inputs(torch, cfg, params, dev):
+    """The layer's input (EP_BATCH, EP_SEQ, d), and the same tokens pushed
+    toward expert 0 (as the moe phase's), which must drop at 1.25."""
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((EP_BATCH, EP_SEQ, cfg.d_model), generator=gen).to(dev)
+    r0 = params["router"][:, 0]
+    return {"dropless": x, "1.25": x + EP_PUSH * r0 / r0.norm()}
+
+
+def _ep_rank(rank: int, port: int, out: str, device: str) -> None:
+    """One of :data:`EP_RANKS` processes: its share of the experts, the
+    dispatch on its device against the CPU's, and ``apply_moe_ep``."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=EP_RANKS)
+    try:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        from repro_torch.distributed.expert_parallel import (apply_moe_ep,
+                                                             ep_dispatch)
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.moe import router_probs
+        dev = torch.device(device)
+        mesh = make_mesh((EP_RANKS,), ("model",), device_type=device)
+        cfg = _config("deepseek-v2-236b").with_overrides(dtype="float32")
+        moe = cfg.moe
+        e_local = moe.n_experts // EP_RANKS
+        params = _ep_layer(torch, cfg, range(rank * e_local,
+                                             (rank + 1) * e_local), dev)
+        for name in ("gate", "up", "down"):
+            params[name] = DTensor.from_local(params[name], mesh, [Shard(0)])
+        s_local = EP_SEQ // EP_RANKS
+        res = {}
+        with torch.no_grad():
+            for label, x in _ep_inputs(torch, cfg, params, dev).items():
+                cf = DROPLESS_CF if label == "dropless" else \
+                    moe.capacity_factor
+                c = cfg.with_overrides(moe=dataclasses.replace(
+                    moe, capacity_factor=cf))
+                # this rank's tokens, their dispatch here and on the CPU
+                # from the same router output
+                xs = x[:, rank * s_local:(rank + 1) * s_local].reshape(
+                    -1, cfg.d_model)
+                gates, experts = router_probs(params, xs, moe)
+                T = xs.shape[0]
+                cap = max(4, math.ceil(T * moe.top_k * cf / EP_RANKS))
+                here = ep_dispatch(experts, gates, EP_RANKS, e_local, cap)
+                cpu = ep_dispatch(experts.cpu(), gates.cpu(), EP_RANKS,
+                                  e_local, cap)
+                equal = all(torch.equal(a.cpu(), b)
+                            for a, b in zip(here, cpu))
+                kept = int((cpu[3] < EP_RANKS * cap).sum())
+                x_d = DTensor.from_local(x, mesh, [Replicate()])
+                dist.barrier()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with implicit_replication():
+                    y = apply_moe_ep(params, x_d, c, mesh=mesh)
+                    y = y.redistribute(mesh, [Shard(1)]).to_local()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                res[label] = {"y": y.cpu(), "dispatch_equal": equal,
+                              "capacity": cap, "kept": kept,
+                              "assignments": T * moe.top_k,
+                              "ms": (time.perf_counter() - t0) * 1e3}
+        torch.save(res, f"{out}/ep_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_ep(torch, device: str = "cuda"):
+    """:func:`_ep_rank` on :data:`EP_RANKS` spawned processes, then one
+    process's ``apply_moe`` on the whole layer (dropless) against their
+    gathered output."""
+    import dataclasses
+    import multiprocessing as mp
+    import shutil
+    from repro_torch.models.moe import apply_moe
+    out = ROOT / "build" / "distributed"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_ep_rank, args=(r, port, str(out), device))
+             for r in range(EP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + EP_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall_s = time.perf_counter() - t0
+    cfg = _config("deepseek-v2-236b").with_overrides(dtype="float32")
+    moe = cfg.moe
+    rep = {"config": cfg.name, "ranks": EP_RANKS, "backend": "gloo",
+           "tensors": device, "mesh": {"model": EP_RANKS},
+           "experts_per_rank": moe.n_experts // EP_RANKS,
+           "tokens": [EP_BATCH, EP_SEQ], "d_model": cfg.d_model,
+           "expert_ff": moe.expert_ff, "top_k": moe.top_k,
+           "n_shared": moe.n_shared, "dtype": "float32",
+           "exitcodes": [p.exitcode for p in procs], "wall_s": wall_s,
+           "note": "gloo carries the all-to-alls through the host: these "
+                   "times say nothing about EP over NVLink"}
+    if any(code != 0 for code in rep["exitcodes"]):
+        rep["failure"] = f"EP ranks exited with {rep['exitcodes']}"
+        return rep
+    ranks = [torch.load(out / f"ep_{r}.pt") for r in range(EP_RANKS)]
+    shutil.rmtree(out, ignore_errors=True)
+    failures = []
+    for label in ("dropless", "1.25"):
+        rows = [r[label] for r in ranks]
+        rep[label] = {
+            "capacity_factor": DROPLESS_CF if label == "dropless"
+            else moe.capacity_factor,
+            "capacity": rows[0]["capacity"],
+            "dispatch_equal_to_cpu": all(r["dispatch_equal"] for r in rows),
+            "dropped": sum(r["assignments"] - r["kept"] for r in rows),
+            "rank_ms": [r["ms"] for r in rows]}
+        if not rep[label]["dispatch_equal_to_cpu"]:
+            failures.append(f"{label}: the kept set differs from the CPU's")
+    if rep["dropless"]["dropped"] != 0 or rep["1.25"]["dropped"] <= 0:
+        failures.append("the dropless run dropped, or the skewed run at "
+                        "1.25 did not")
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        params = _ep_layer(torch, cfg, range(moe.n_experts), dev)
+        x = _ep_inputs(torch, cfg, params, dev)["dropless"]
+        c = cfg.with_overrides(moe=dataclasses.replace(
+            moe, capacity_factor=DROPLESS_CF))
+        want = apply_moe(params, x, c).cpu()
+        del params
+    got = torch.cat([r["dropless"]["y"] for r in ranks], dim=1)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    rep["dropless"].update({"rel_err_vs_apply_moe": err, "tolerance": 1e-5,
+                            "finite": bool(torch.isfinite(got).all())})
+    print(f"chip_smoke: EP over {EP_RANKS} gloo ranks ({device} tensors): "
+          f"dropless {err:.3g} of max |y| from apply_moe; "
+          f"{rep['1.25']['dropped']} of "
+          f"{EP_BATCH * EP_SEQ * moe.top_k} assignments dropped at 1.25; "
+          f"rank ms {rep['dropless']['rank_ms']} (gloo through the host)",
+          flush=True)
+    if not (err <= 1e-5 and rep["dropless"]["finite"]):
+        failures.append(f"dropless EP is {err} from apply_moe")
+    if failures:
+        rep["failure"] = "; ".join(failures)
     return rep
 
 

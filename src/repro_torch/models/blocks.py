@@ -9,8 +9,11 @@ memory's ``cross_k``/``cross_v``); the DeepSeek multi-head latent
 attention blocks (MLA with a dense MLP, MLA_MOE with the MoE of
 :mod:`.moe`) with their ``c_kv``/``k_rope`` latent cache; the Mamba2
 (SSM) and Griffin RG-LRU (RGLRU) blocks with their state and conv
-caches.  ``cfg.moe_ep`` (expert parallelism) raises
-``NotImplementedError``.
+caches.  ``cfg.moe_ep`` routes the MoE through
+``distributed.expert_parallel.apply_moe_ep``; ``cfg.seq_sharding`` with
+``cfg.sp_gather_heads`` and ``cfg.decode_seq_shard`` place the
+reference's sharding hints (``common.shard_*``), which act on DTensors
+under an ambient mesh only.
 
 The functional contract is the reference's:
 
@@ -44,12 +47,13 @@ from typing import Dict, Optional
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import (ATTN, DEC, ENC, LOCAL_ATTN, MLA, MLA_MOE, RGLRU,
                             SSM, ModelConfig)
 from .common import (apply_mlp, apply_norm, apply_rope, blocked_attention,
                      decode_attention, dense_init, init_mlp, init_norm,
-                     rms_norm)
+                     rms_norm, shard_heads)
 from .moe import apply_moe, init_moe
 from .rglru import apply_rglru_block, init_rglru_block, init_rglru_cache
 from .ssm import apply_ssm_block, init_ssm_block, init_ssm_cache
@@ -160,7 +164,33 @@ def _write_full_cache(cache_arr, new, pos: int) -> None:
     clamps into range, as ``lax.dynamic_update_slice`` does)."""
     S, L = new.shape[1], cache_arr.shape[1]
     start = min(max(pos, 0), L - S)
+    if isinstance(cache_arr, DTensor):
+        _write_sharded_cache(cache_arr, new, start)
+        return
     cache_arr[:, start:start + S] = new.to(cache_arr.dtype)
+
+
+def _write_sharded_cache(cache_arr, new, start: int) -> None:
+    """:func:`_write_full_cache` into a DTensor cache, whose sequence dim
+    may be sharded (``cache_pspecs``): DTensor cannot slice a sharded dim
+    in place, so each rank writes the part of the slab that falls in its
+    own shard, ``new`` laid out as the cache with its sequence whole."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, placements = cache_arr.device_mesh, cache_arr.placements
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                  for p in placements]).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache_arr.shape, mesh, placements)
+    lo, hi = offset[1], offset[1] + shape[1]
+    a, b = max(start, lo), min(start + new.shape[1], hi)
+    if a < b:
+        cache_arr.to_local()[:, a - lo:b - lo] = \
+            src[:, a - start:b - start].to(cache_arr.dtype)
 
 
 def _write_ring(cache_arr, new, pos: int, window: int) -> None:
@@ -217,9 +247,13 @@ def apply_attn_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
             attn = kernel_ops.decode_attention(
                 q.to(ck.dtype), ck, cv, lengths, block_kv=cfg.attn_block_kv)
         else:
-            attn = decode_attention(q, ck, cv, pos, window=window)
+            attn = decode_attention(
+                q, ck, cv, pos, window=window,
+                seq_shard=cfg.decode_seq_shard and not window)
     else:
         q, k, v = _qkv(params["attn"], h, cfg, kind, positions)
+        if cfg.seq_sharding and cfg.sp_gather_heads:
+            q, k, v = shard_heads(q), shard_heads(k), shard_heads(v)
         if cfg.use_pallas_kernels and causal:
             from ..kernels import ops as kernel_ops
             attn = kernel_ops.flash_attention(
@@ -396,6 +430,8 @@ def apply_mla_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             *k_nope.shape[:3], k_rope.shape[-1])], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
+        if cfg.seq_sharding and cfg.sp_gather_heads:
+            q, k, v = shard_heads(q), shard_heads(k), shard_heads(v)
         attn = blocked_attention(q, k, v, causal=True,
                                  block_q=cfg.attn_block_q,
                                  block_kv=cfg.attn_block_kv)
@@ -411,7 +447,8 @@ def apply_mla_block(params, x, cfg: ModelConfig, kind: str, *, mode: str,
     if "mlp" in params:
         out = apply_mlp(params["mlp"], h, cfg.act, gated=_gated(cfg))
     elif cfg.moe_ep:
-        raise NotImplementedError("moe_ep not yet ported")
+        from ..distributed.expert_parallel import apply_moe_ep
+        out = apply_moe_ep(params["moe"], h, cfg)
     else:
         out = apply_moe(params["moe"], h, cfg)
     return res + out, cache

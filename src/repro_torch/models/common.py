@@ -11,7 +11,7 @@ probabilities cast to the value dtype before the PV product.
 
 Initializers draw from a ``torch.Generator`` on the target device; they
 do not reproduce JAX's random bits (the parity tests bridge the
-reference's weights instead).
+reference's weights instead).  On the meta device they draw nothing.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -37,6 +38,8 @@ def dense_init(gen: torch.Generator, shape, in_axis=0,
         np.prod([shape[a] for a in in_axis]))
     std = 1.0 / math.sqrt(max(1, fan_in))
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.is_meta:                    # shapes only (lm.param_specs)
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype)     # in place: one fp32 copy of a leaf
 
@@ -44,8 +47,110 @@ def dense_init(gen: torch.Generator, shape, in_axis=0,
 def embed_init(gen: torch.Generator, shape,
                dtype=torch.float32) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.is_meta:
+        return t.to(dtype)
     t.normal_(generator=gen)
     return t.mul_(0.02).to(dtype)
+
+
+# ----------------------------------------------------------------------- #
+# DTensor activations (a sharded step: distributed.sharding)
+# ----------------------------------------------------------------------- #
+def unshard(x, *dims: int):
+    """A DTensor with ``dims`` whole and no pending sums: ``Partial``
+    placements (a contraction over a sharded dim leaves them) and shards
+    of ``dims`` become ``Replicate``; any other tensor as it is.  Ops
+    that DTensor has no rule for on such inputs take it first: a norm
+    over its last dim, the grouped-query reshape of a head dim."""
+    if not isinstance(x, DTensor):
+        return x
+    dims = tuple(d % x.dim() for d in dims)
+    placements = [Replicate() if p.is_partial() or any(
+        p.is_shard(d) for d in dims) else p for p in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(placements=placements)
+
+
+def _constrain(x, spec):
+    """``jax.lax.with_sharding_constraint`` on the ambient mesh: a DTensor
+    redistributed to ``spec`` (entries per dim: None, an axis name or a
+    tuple of them); a plain tensor, or no ambient mesh, as it is."""
+    from ..distributed.sharding import current_mesh, to_placements
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, to_placements(mesh, spec))
+
+
+def _ambient_axes():
+    """(axis names, {name: size}) of the ambient mesh, or ()."""
+    from ..distributed.sharding import current_mesh, mesh_sizes
+    mesh = current_mesh()
+    if mesh is None or not mesh.mesh_dim_names:
+        return ()
+    return tuple(mesh.mesh_dim_names), mesh_sizes(mesh)
+
+
+def _batch_entry(names, sizes, batch: int):
+    """("pod","data") present on the mesh if their product divides the
+    batch, else None."""
+    axes = tuple(a for a in ("pod", "data") if a in names)
+    prod = math.prod(sizes[a] for a in axes)
+    return axes if axes and batch % prod == 0 else None
+
+
+def shard_seq(x, *, batch_dim: int = 0, seq_dim: int = 1):
+    """Megatron-SP constraint: shard the sequence dim over "model".
+
+    Activations between blocks are (B, S, d); with the sequence over the
+    model axis, norms and MLP column sections run sequence-sharded.  The
+    identity without an ambient mesh, on a plain tensor, or when S does
+    not divide the model axis.
+    """
+    info = _ambient_axes()
+    if not info:
+        return x
+    names, sizes = info
+    if "model" not in names or x.shape[seq_dim] % sizes["model"]:
+        return x
+    spec = [None] * x.dim()
+    spec[batch_dim] = _batch_entry(names, sizes, x.shape[batch_dim])
+    spec[seq_dim] = "model"
+    return _constrain(x, spec)
+
+
+def shard_heads(x, *, head_dim: int = 2):
+    """Pre-attention Megatron-SP constraint: full sequence, heads sharded
+    over "model" when divisible (else replicated, still correct SP), so
+    q/k/v are gathered over the sequence once per layer."""
+    info = _ambient_axes()
+    if not info:
+        return x
+    names, sizes = info
+    if "model" not in names:
+        return x
+    spec = [None] * x.dim()
+    spec[0] = _batch_entry(names, sizes, x.shape[0])
+    if x.shape[head_dim] % sizes["model"] == 0:
+        spec[head_dim] = "model"
+    return _constrain(x, spec)
+
+
+def shard_decode_scores(s):
+    """Keep decode attention scores sharded on the cache-length dim.
+
+    s: (B, H, 1, S): without it the whole KV cache could be resharded
+    onto heads, a cache-sized collective per decode step.
+    """
+    info = _ambient_axes()
+    if not info:
+        return s
+    names, sizes = info
+    if "model" not in names or s.shape[-1] % sizes["model"]:
+        return s
+    return _constrain(s, [_batch_entry(names, sizes, s.shape[0]), None,
+                          None, "model"])
 
 
 # ----------------------------------------------------------------------- #
@@ -53,12 +158,14 @@ def embed_init(gen: torch.Generator, shape,
 # ----------------------------------------------------------------------- #
 def rms_norm(x, weight, eps: float):
     """x * rsqrt(mean(x²) + eps) * (1 + weight), in fp32."""
+    x = unshard(x, -1)
     dtype = x.dtype
     out = F.rms_norm(x.float(), (x.shape[-1],), eps=eps)
     return (out * (1.0 + weight.float())).to(dtype)
 
 
 def layer_norm(x, weight, bias, eps: float):
+    x = unshard(x, -1)
     dtype = x.dtype
     x = x.float()
     mean = x.mean(dim=-1, keepdim=True)
@@ -264,7 +371,8 @@ def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(outs, dim=1)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0,
+                     seq_shard: bool = False):
     """Single-token attention against a (possibly ring-buffered) KV cache.
 
     q: (B, 1, H, D); caches: (B, S_cache, Hkv, D); pos: count of tokens
@@ -272,18 +380,24 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window: int = 0):
     For windowed layers the cache is a ring buffer and every slot
     < min(pos+1, S_cache) is valid.  The grouped GQA einsum contracts
     against the Hkv-cache without a rep×-replicated copy.
+    ``seq_shard`` pins the score layout to the cache's length sharding
+    (see :func:`shard_decode_scores`).
     """
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     rep = H // Hkv
     scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, 1, Hkv, rep, D)
+    qg = unshard(q, 2).reshape(B, 1, Hkv, rep, D)
     s = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k_cache.float()) * scale
     s = s.reshape(B, H, 1, S)
+    if seq_shard:
+        s = shard_decode_scores(s)
     idx = torch.arange(S, device=q.device)[None, None, None, :]
     valid = idx <= pos if not window else idx < min(pos + 1, S)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if seq_shard:
+        p = shard_decode_scores(p)
     pg = p.reshape(B, Hkv, rep, 1, S)
     out = torch.einsum("bhrqk,bkhd->bqhrd", pg.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, D).to(q.dtype)
@@ -306,7 +420,8 @@ def cross_entropy_loss(hidden, head_w, labels, *, chunk: int = 0,
     S = hidden.shape[1]
 
     def piece_loss(h, y):
-        logits = (h @ head_w).float()
+        # DTensor's gather over a vocab-sharded dim fails: vocab whole
+        logits = unshard((h @ head_w).float(), -1)
         if softcap:
             logits = torch.tanh(logits / softcap) * softcap
         lse = torch.logsumexp(logits, dim=-1)

@@ -28,6 +28,8 @@ public surface is :class:`Model` (build with :func:`build_model`):
     cache                     = model.init_cache(batch, max_len,
                                                  memory_len=..., device=...)
     batch_specs               = model.input_specs(shape)   # meta tensors
+    cache_specs               = model.cache_specs(shape)   # meta tensors
+    param_specs               = model.param_specs()        # meta tensors
 
 ``cfg.remat`` recomputes each block of a train-mode forward in the
 backward (``torch.utils.checkpoint``), as the reference rematerialises
@@ -46,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..configs.base import DEC, ENC, MLA_MOE, ModelConfig, ShapeConfig
 from .blocks import apply_block, init_block, init_block_cache, torch_dtype
-from .common import apply_norm, embed_init, init_norm
+from .common import apply_norm, embed_init, init_norm, shard_seq
 
 PyTree = Any
 
@@ -83,10 +85,18 @@ def _stack(trees: List[PyTree]) -> PyTree:
 # --------------------------------------------------------------------- #
 # parameter construction
 # --------------------------------------------------------------------- #
+class _MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: the initializers read its ``device`` and draw nothing there."""
+    device = torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
-    """Seeded random parameters in the reference's tree layout."""
+    """Seeded random parameters in the reference's tree layout; on
+    ``device="meta"`` their shapes and dtypes only (:func:`param_specs`)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (_MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dtype = torch_dtype(cfg)
     params: Dict = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dtype),
@@ -167,18 +177,23 @@ def _run_stack(params_list, kinds, x, cfg, *, mode, positions=None,
     reference's per-block ``jax.checkpoint``); a train block has no
     cache."""
     remat = cfg.remat and mode == "train"
+    # the sequence-parallel activation constraint between blocks
+    sp = cfg.seq_sharding and mode in ("train", "prefill")
     for i, kind in enumerate(kinds):
         c = caches[i] if caches is not None else None
         if remat:
             def block(p, h, kind=kind):
-                return apply_block(p, h, cfg, kind, mode=mode,
-                                   positions=positions, pos=pos, cache=None,
-                                   memory=memory)[0]
+                h = apply_block(p, h, cfg, kind, mode=mode,
+                                positions=positions, pos=pos, cache=None,
+                                memory=memory)[0]
+                return shard_seq(h) if sp else h
             x = checkpoint(block, params_list[i], x, use_reentrant=False)
         else:
             x, _ = apply_block(params_list[i], x, cfg, kind, mode=mode,
                                positions=positions, pos=pos, cache=c,
                                memory=memory)
+            if sp:
+                x = shard_seq(x)
     return x
 
 
@@ -330,11 +345,16 @@ def prefill(params, batch, cfg: ModelConfig, max_len: Optional[int] = None):
 
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: int write position.  The
-    cache is updated in place and returned."""
-    x = embed_tokens(params, tokens, cfg)
-    x = _run_layers(params, x, cfg, cache, mode="decode", pos=int(pos))
-    hidden = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    return apply_head(params, hidden, cfg), cache
+    cache is updated in place and returned.  DTensor parameters and
+    cache (``distributed.sharding``'s ``params_pspecs`` and
+    ``cache_pspecs``) run the step on their mesh; the logits are then a
+    DTensor with the plain step's values."""
+    from ..distributed.sharding import sharded_step
+    with sharded_step(params["embed"]):
+        x = embed_tokens(params, tokens, cfg)
+        x = _run_layers(params, x, cfg, cache, mode="decode", pos=int(pos))
+        hidden = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+        return apply_head(params, hidden, cfg), cache
 
 
 # --------------------------------------------------------------------- #
@@ -370,6 +390,21 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
     return specs
 
 
+def param_specs(cfg: ModelConfig) -> PyTree:
+    """The parameter tree as meta tensors (the reference's
+    ``eval_shape`` of ``init``): built on the meta device, no storage."""
+    return init_params(cfg, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig) -> PyTree:
+    """The decode cache of ``shape`` as meta tensors (dry-run stand-ins);
+    an encoder-decoder's cross cache holds min(4096, S) frames, as the
+    reference's."""
+    B, S = shape.global_batch, shape.seq_len
+    mem_len = min(4096, S) if cfg.is_encdec else 0
+    return init_cache(cfg, B, S, mem_len, device="meta")
+
+
 # --------------------------------------------------------------------- #
 # model facade
 # --------------------------------------------------------------------- #
@@ -400,12 +435,18 @@ class Model:
     def input_specs(self, shape: ShapeConfig):
         return input_specs(self.cfg, shape)
 
+    def cache_specs(self, shape: ShapeConfig):
+        return cache_specs(self.cfg, shape)
+
+    def param_specs(self):
+        return param_specs(self.cfg)
+
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
 
 
 __all__ = ["Model", "active_param_count", "apply_head", "build_model",
-           "decode_step", "embed_tokens", "encode", "forward",
+           "cache_specs", "decode_step", "embed_tokens", "encode", "forward",
            "head_weights", "init_cache", "init_params", "input_specs",
-           "param_count", "prefill"]
+           "param_count", "param_specs", "prefill"]

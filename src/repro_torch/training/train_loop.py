@@ -61,9 +61,17 @@ def value_and_grad(params, batch, cfg: ModelConfig):
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig
                     ) -> Callable[[PyTree, AdamWState, Dict], Tuple]:
-    """Build the train step (grad, accumulation, AdamW update)."""
+    """Build the train step (grad, accumulation, AdamW update).  DTensor
+    parameters (``distributed.sharding.params_pspecs``) run it on their
+    mesh: the returned parameters and moments are DTensors laid out as
+    given, the loss a DTensor with the plain step's value."""
+    from ..distributed.sharding import sharded_step
 
     def train_step(params, opt_state: AdamWState, batch: Dict):
+        with sharded_step(params["embed"]):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state: AdamWState, batch: Dict):
         if tcfg.grad_accum > 1:
             # microbatches over the leading batch axis; losses and grads
             # are summed in fp32 and divided by k (a mean of microbatch

@@ -554,3 +554,73 @@ def test_cuda_train_moves_the_params_and_matches_cpu(cuda):
         assert new.device.type == "cuda", name
         assert not torch.equal(new.cpu(), old), name
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# distribution on the card: blockwise int8, a one-rank NCCL group
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def nccl_world(cuda):
+    """A one-rank NCCL group on the card (NCCL takes one rank per
+    device), destroyed after the test."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape", [(1000,), (4, 256), (3, 7, 37),
+                                   (1 << 20,)])
+def test_cuda_quantize_blockwise_equals_cpu(cuda, shape):
+    from repro_torch.distributed.compression import (dequantize_blockwise,
+                                                     quantize_blockwise)
+    x = _t(_inputs(11, shape)[0], "float32") * 3.0
+    x.reshape(-1)[:256] = 0.0                  # an all-zero block
+    q, s, pad = quantize_blockwise(x.to(cuda))
+    q_c, s_c, pad_c = quantize_blockwise(x)
+    assert pad == pad_c
+    assert torch.equal(q.cpu(), q_c)
+    assert torch.equal(s.cpu().view(torch.int32), s_c.view(torch.int32))
+    back = dequantize_blockwise(q, s, pad, shape).cpu()
+    assert torch.equal(back.view(torch.int32),
+                       dequantize_blockwise(q_c, s_c, pad_c, shape).view(
+                           torch.int32))
+
+
+def test_cuda_compressed_psum_on_one_nccl_rank(nccl_world, cuda):
+    """Over one rank the shared scale is the rank's own: the sum is its
+    quantize → dequantize, bit for bit, and the CPU's bits."""
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize_blockwise,
+                                                     quantize_blockwise)
+    x = _t(_inputs(12, (37, 300))[0], "float32")
+    got = compressed_psum(x.to(cuda), nccl_world)
+    want = dequantize_blockwise(*quantize_blockwise(x), x.shape)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_shard_hints_are_exact_on_a_one_rank_mesh(nccl_world, cuda):
+    """``shard_seq``, ``shard_heads`` and ``shard_decode_scores`` on a
+    (1, 1) CUDA mesh change no value; without the mesh they return their
+    input itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import (shard_decode_scores, shard_heads,
+                                           shard_seq)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    x = _t(_inputs(13, (2, 8, 4, 16))[0], "float32").to(cuda)
+    d = DTensor.from_local(x, mesh, [Replicate(), Replicate()])
+    for hint in (shard_seq, shard_heads, shard_decode_scores):
+        assert hint(x) is x and hint(d) is d
+        with use_mesh(mesh):
+            got = hint(d)
+            assert hint(x) is x
+        assert isinstance(got, DTensor)
+        assert torch.equal(got.full_tensor().view(torch.int32),
+                           x.view(torch.int32))

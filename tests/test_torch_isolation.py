@@ -60,7 +60,11 @@ def _port_modules():
 def test_every_port_module_imports_without_jax_or_reference():
     modules = _port_modules()
     for name in ("repro_torch.kernels.flash_attention",
+                 "repro_torch.distributed.compression",
+                 "repro_torch.distributed.expert_parallel",
+                 "repro_torch.distributed.sharding",
                  "repro_torch.launch.bench_serving",
+                 "repro_torch.launch.mesh",
                  "repro_torch.launch.train", "repro_torch.data.pipeline",
                  "repro_torch.training.checkpoint",
                  "repro_torch.training.optimizer",
@@ -138,6 +142,8 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.data import batches_for_model
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.bench_serving import run_real_scenario
+    from repro_torch.launch.mesh import (make_mesh, make_production_mesh,
+                                         make_submesh)
     from repro_torch.launch.serve import make_torch_runner
     from repro_torch.models.lm import build_model
     from repro_torch.training import TrainConfig, train
@@ -152,6 +158,9 @@ def test_entry_points_raise_without_cuda():
                  lambda: make_micro_runner("attn-tiny"),
                  lambda: make_fidelity_micro_runner("mlp"),
                  lambda: make_torch_runner("gemma3-1b"),
+                 lambda: make_mesh((1, 1), ("data", "model")),
+                 lambda: make_production_mesh(),
+                 lambda: make_submesh(1),
                  lambda: launch_train.main(["--arch", "gemma3-1b",
                                             "--reduced", "--steps", "1"]),
                  lambda: train(build_model(GEMMA3_1B.reduced()),

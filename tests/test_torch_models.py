@@ -258,12 +258,20 @@ def test_param_counts_match_reference(name, scan_layers):
 
 
 def test_unported_kinds_raise():
+    """An unknown block kind raises ``not yet ported``; ``cfg.moe_ep`` is
+    ported (``distributed.expert_parallel``) and, with no mesh, is the
+    dense-dispatch MoE block, as in the reference."""
     from repro_torch.configs.base import MLA_MOE
     from repro_torch.models.blocks import apply_block, init_block
-    cfg = get_config("deepseek-v2-236b").reduced(dtype="float32",
-                                                 moe_ep=True)
-    params = init_block(torch.Generator(), cfg, MLA_MOE)
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="moe_ep not yet ported"):
-        apply_block(params, x, cfg, MLA_MOE, mode="train",
-                    positions=torch.zeros((1, 4), dtype=torch.int32))
+    cfg = get_config("deepseek-v2-236b").reduced(dtype="float32")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        init_block(torch.Generator(), cfg, "no-such-kind")
+    params = init_block(torch.Generator().manual_seed(0), cfg, MLA_MOE)
+    x = torch.randn((1, 4, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    want, _ = apply_block(params, x, cfg, MLA_MOE, mode="train",
+                          positions=pos)
+    got, _ = apply_block(params, x, cfg.with_overrides(moe_ep=True), MLA_MOE,
+                         mode="train", positions=pos)
+    assert torch.equal(got, want)
