@@ -95,11 +95,16 @@ non-zero:
    timed at the serve prefill (4 × 512 tokens) and a B = 4 decode step.
    **distributed** — the port's distribution layer (no kernel: the
    reference's sharded steps, EP and compression are plain jnp):
-   * full-width gemma3-1b's bf16 decode (a 64-token prompt, 4 steps)
-     with its parameters and cache laid out by ``params_pspecs`` and
-     ``cache_pspecs`` as DTensors on a (1, 1) ("data", "model") mesh of
-     a one-rank NCCL group: logits and cache bit for bit the plain
-     step's;
+   * full-width gemma3-1b's bf16 prefill (a 64-token prompt) with its
+     parameters and prompt laid out by ``params_pspecs`` and
+     ``batch_pspecs`` as DTensors on a (1, 1) ("data", "model") mesh of
+     a one-rank NCCL group, its cache built laid out by
+     ``cache_pspecs``, then 4 decode steps from that DTensor cache:
+     logits and every cache leaf bit for bit the plain steps';
+   * two full-width gemma3-1b train steps (B = 2, S = 512) on that mesh
+     with the moments laid out by ``optimizer_pspecs`` (ZeRO): loss,
+     parameters and moments bit for bit the plain steps', every layout
+     kept; the peak device memory;
    * ``compressed_psum`` over that group on a fp32 tree of gemma3-1b's
      parameter shapes (999,885,952 values, 4 GB): bit for bit the card's
      own quantize → dequantize, whose quantization is the CPU's on a
@@ -116,6 +121,17 @@ non-zero:
      gates) equals the CPU's for the same router output.  gloo carries
      the tensors through the host, so the times say nothing about EP
      over NVLink.
+   **profile** — the analytic profiler (``launch/profile_gpu.py``) on
+   full-width gemma3-1b's decode step at t = 1 (the plain step, kernels
+   off) and b = 1, 4 and 16 over 8192 cache slots: ``program_cost`` on
+   meta tensors equals the same count on the card's tensors (FLOPs,
+   HBM bytes, device ops, argument, temporary, output and aliased
+   bytes; an op that dispatches otherwise is named); the counted device
+   ops beside the profiler's launch calls and kernel records of the same
+   step; the argument bytes equal to the bytes of the parameters and
+   cache resident on the card; the predicted peak beside
+   ``max_memory_allocated``; ``GPUPackratProfiler``'s L(1, b) beside the
+   step's wall and device-busy time.
 4. **trace** — per path, where a full-width bf16 step spends its time:
    one 512-token prefill and 4 decode steps at batch 1, traced with
    ``torch.profiler``: wall time, host time to enqueue, device busy time,
@@ -236,6 +252,12 @@ DROPLESS_CF = 32.0
 # processes on the card (40 of 160 experts each), B x S tokens, the
 # skewed input's push toward expert 0, the weights' seed
 DIST_PROMPT, DIST_DECODE, DIST_MAX_LEN = 64, 4, 128
+# the ZeRO train steps' batch: both states (parameters and fp32 moments,
+# 10 GB each) and one step's activations fit the card
+DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 2, 512
+# profile phase: gemma3-1b's decode at t = 1 and these batches, over the
+# analytic profiler's default cache length
+PROFILE_BATCHES, PROFILE_SEQ = (1, 4, 16), 8192
 DIST_PSUM_VALUES = 999_885_952
 EP_RANKS, EP_BATCH, EP_SEQ, EP_PUSH, EP_SEED = 4, 4, 512, 10.0, 11
 EP_TIMEOUT_S = 600.0
@@ -356,6 +378,7 @@ def main(argv=None) -> int:
         emit({"phase": "model", **phase_model(torch, name)})
     emit({"phase": "moe", **phase_moe(torch)})
     emit({"phase": "distributed", **phase_distributed(torch)})
+    emit({"phase": "profile", **phase_profile(torch)})
     for name in PATHS:
         emit({"phase": "trace", **phase_trace(torch, name)})
 
@@ -1358,6 +1381,8 @@ def phase_distributed(torch):
     try:
         rep["decode"] = _dist_decode(torch)
         _free(torch)
+        rep["train"] = _dist_train(torch)
+        _free(torch)
         rep["compressed_psum"] = _dist_psum(torch, dist.group.WORLD)
         _free(torch)
     finally:
@@ -1374,11 +1399,16 @@ def phase_distributed(torch):
 
 
 def _dist_decode(torch):
-    from repro_torch.distributed import (cache_pspecs, distribute_tree,
-                                         params_pspecs)
+    """gemma3-1b's prefill with DTensor parameters and prompt on the (1, 1)
+    mesh (its cache built laid out by ``cache_pspecs``) against the plain
+    prefill, then decode steps from that DTensor cache against the plain
+    steps from the plain cache: logits and every cache leaf bit for bit."""
+    from repro_torch.distributed import (batch_pspecs, cache_pspecs,
+                                         distribute_tree, params_pspecs,
+                                         to_placements)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import decode_step, init_params, prefill
-    from repro_torch.training.tree import leaves_with_path, tree_map
+    from repro_torch.training.tree import leaves_with_path
     dev = torch.device("cuda")
     mesh = make_mesh((1, 1), ("data", "model"))
     cfg = _config("gemma3-1b").with_overrides(use_pallas_kernels=False)
@@ -1387,13 +1417,27 @@ def _dist_decode(torch):
     batch, dec = _prompt(torch, cfg, S, n_dec, gen)
     rep = {"config": cfg.name, "mesh": [1, 1], "backend": "nccl",
            "prompt": S, "max_len": DIST_MAX_LEN, "decode_steps": n_dec}
+
+    def caches_equal(d_cache, cache):
+        return all(_bits_equal(torch, g.full_tensor(), w)
+                   for (_, g), (_, w) in zip(leaves_with_path(d_cache),
+                                             leaves_with_path(cache)))
+
     with torch.no_grad():
         params = init_params(cfg, 0, device=dev)
-        _, cache = prefill(params, batch, cfg, max_len=DIST_MAX_LEN)
+        want, cache = prefill(params, batch, cfg, max_len=DIST_MAX_LEN)
         d_params = distribute_tree(params, params_pspecs(cfg, params, mesh),
                                    mesh)
-        d_cache = distribute_tree(tree_map(torch.clone, cache),
-                                  cache_pspecs(cfg, cache, mesh), mesh)
+        d_batch = distribute_tree(batch, batch_pspecs(batch, mesh), mesh)
+        got, d_cache = prefill(d_params, d_batch, cfg, max_len=DIST_MAX_LEN)
+        specs = cache_pspecs(cfg, d_cache, mesh)
+        rep["prefill"] = {
+            "logits_bit_equal": _bits_equal(torch, got.full_tensor(), want),
+            "cache_bit_equal": caches_equal(d_cache, cache),
+            "cache_laid_out": all(
+                tuple(g.placements) == tuple(to_placements(mesh, sp))
+                for (_, g), (_, sp) in zip(leaves_with_path(d_cache),
+                                           leaves_with_path(specs)))}
         equal, ms = [], {"plain": [], "dtensor": []}
         for i in range(n_dec):
             tok = dec[:, i:i + 1]
@@ -1408,17 +1452,85 @@ def _dist_decode(torch):
             ms["plain"].append((t1 - t0) * 1e3)
             ms["dtensor"].append((time.perf_counter() - t1) * 1e3)
             equal.append(_bits_equal(torch, got, want))
-        cache_equal = all(
-            _bits_equal(torch, g.full_tensor(), w)
-            for (_, g), (_, w) in zip(leaves_with_path(d_cache),
-                                      leaves_with_path(cache)))
+        cache_equal = caches_equal(d_cache, cache)
     rep.update({"logits_bit_equal": equal, "cache_bit_equal": cache_equal,
                 "finite": bool(torch.isfinite(want).all()),
                 "step_ms": ms})
-    print(f"chip_smoke: distributed decode on a (1, 1) NCCL mesh: logits "
-          f"bit-equal {equal}, cache {cache_equal}", flush=True)
-    if not (all(equal) and cache_equal and rep["finite"]):
-        rep["failure"] = "the DTensor decode differs from the plain step"
+    print(f"chip_smoke: distributed prefill on a (1, 1) NCCL mesh: "
+          f"{rep['prefill']}; decode from its cache: logits bit-equal "
+          f"{equal}, cache {cache_equal}", flush=True)
+    if not (all(rep["prefill"].values()) and all(equal) and cache_equal
+            and rep["finite"]):
+        rep["failure"] = ("the DTensor prefill or decode differs from the "
+                          "plain step")
+    return rep
+
+
+def _dist_train(torch):
+    """Two full-width gemma3-1b train steps with DTensor parameters and
+    batch and the moments laid out by ``optimizer_pspecs`` (ZeRO) on the
+    (1, 1) mesh, each against the plain step from the same state: loss,
+    every parameter and moment bit for bit, every layout kept."""
+    from repro_torch.data import batches_for_model
+    from repro_torch.distributed import (batch_pspecs, distribute_tree,
+                                         optimizer_pspecs, params_pspecs)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import init_params
+    from repro_torch.training import (AdamWConfig, TrainConfig, init_adamw,
+                                      make_train_step)
+    from repro_torch.training.tree import leaves_with_path
+    from repro_torch.configs.base import ShapeConfig
+    dev = torch.device("cuda")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = _config(TRAIN_ARCH).with_overrides(use_pallas_kernels=False)
+    tcfg = TrainConfig(adamw=AdamWConfig(learning_rate=1e-3,
+                                         warmup_steps=20))
+    B, S = DIST_TRAIN_BATCH, DIST_TRAIN_SEQ
+    data = batches_for_model(cfg, ShapeConfig("dist", S, B, "train"))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device=dev)
+    state = init_adamw(tcfg.adamw, params)
+    p_spec = params_pspecs(cfg, params, mesh)
+    o_spec = optimizer_pspecs(p_spec, params, mesh)
+    d_params = distribute_tree(params, p_spec, mesh)
+    d_state = state._replace(mu=distribute_tree(state.mu, o_spec, mesh),
+                             nu=distribute_tree(state.nu, o_spec, mesh))
+    layout = [tuple(t.placements) for t in
+              (x for tree in (d_params, d_state.mu, d_state.nu)
+               for _, x in leaves_with_path(tree))]
+    step = make_train_step(cfg, tcfg)
+    rep = {"config": cfg.name, "batch": B, "seq": S, "steps": []}
+    for _ in range(2):
+        batch = {k: v.to(dev) for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d_batch = distribute_tree(batch, batch_pspecs(batch, mesh), mesh)
+        d_params, d_state, d_m = step(d_params, d_state, d_batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pairs = [(g, w) for got, want in ((d_params, params),
+                                          (d_state.mu, state.mu),
+                                          (d_state.nu, state.nu))
+                 for (_, g), (_, w) in zip(leaves_with_path(got),
+                                           leaves_with_path(want))]
+        rep["steps"].append({
+            "loss": float(m["loss"]),
+            "loss_bit_equal": _bits_equal(torch, d_m["loss"].full_tensor(),
+                                          m["loss"]),
+            "state_bit_equal": all(_bits_equal(torch, g.full_tensor(), w)
+                                   for g, w in pairs),
+            "layout_kept": [tuple(g.placements) for g, _ in pairs] == layout,
+            "plain_ms": (t1 - t0) * 1e3, "dtensor_ms": (t2 - t1) * 1e3})
+    rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, state, d_params, d_state
+    print(f"chip_smoke: ZeRO train steps on a (1, 1) NCCL mesh, B = {B}: "
+          f"{rep['steps']}, peak {rep['peak_gib']:.2f} GiB", flush=True)
+    if not all(s["loss_bit_equal"] and s["state_bit_equal"]
+               and s["layout_kept"] for s in rep["steps"]):
+        rep["failure"] = "the ZeRO train steps differ from the plain steps"
     return rep
 
 
@@ -1655,6 +1767,104 @@ def _dist_ep(torch, device: str = "cuda"):
         failures.append(f"dropless EP is {err} from apply_moe")
     if failures:
         rep["failure"] = "; ".join(failures)
+    return rep
+
+
+# --------------------------------------------------------------------- #
+# the analytic profiler's count against the card
+# --------------------------------------------------------------------- #
+def phase_profile(torch):
+    """gemma3-1b's decode step (t = 1: the plain step, kernels off, as the
+    analytic profiler counts it) at b in :data:`PROFILE_BATCHES` and
+    :data:`PROFILE_SEQ` cache slots: ``program_cost`` on meta against the
+    same count on the card's tensors (FLOPs, bytes, launches, residency:
+    equal); the counted launches beside the profiler's launch calls and
+    kernel records of the same step; the argument bytes against the
+    bytes of the parameters and cache resident on the card; the
+    predicted peak beside ``max_memory_allocated``; and
+    ``GPUPackratProfiler``'s L(1, b) beside the step's wall and
+    device-busy time."""
+    from repro_torch.launch.profile_gpu import (GPUPackratProfiler,
+                                                decode_args, decode_cost)
+    from repro_torch.launch.step_cost import program_cost
+    from repro_torch.training.tree import leaves_with_path
+    t0 = time.perf_counter()
+    cfg = _config("gemma3-1b")
+    prof_file = ROOT / "build" / "profile_gpu_gemma3-1b.json"
+    prof_file.unlink(missing_ok=True)
+    prof = GPUPackratProfiler("gemma3-1b", seq_len=PROFILE_SEQ,
+                              cache_file=str(prof_file))
+    rows, failures = [], []
+    for b in PROFILE_BATCHES:
+        meta = decode_cost(cfg, 1, b, PROFILE_SEQ)
+        _free(torch)
+        base = torch.cuda.memory_allocated()
+        step, args = decode_args(cfg, b, PROFILE_SEQ, device="cuda")
+        resident = sum({t.untyped_storage().data_ptr():
+                        t.untyped_storage().nbytes()
+                        for _, t in leaves_with_path(list(args))}.values())
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        card = program_cost(step, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        for _ in range(2):                   # warm-up: cuBLAS, allocator
+            step(*args)
+        trace = _traced(torch, lambda: step(*args), 1)
+        terms = prof.terms(1, b)
+
+        def fields(c):
+            return {"flops": c.cost.flops, "hbm_bytes": c.cost.hbm_bytes,
+                    "launches": c.launches,
+                    "argument_bytes": c.cost.argument_bytes,
+                    "temp_bytes": c.cost.temp_bytes,
+                    "output_bytes": c.cost.output_bytes,
+                    "alias_bytes": c.alias_bytes}
+        ops_diff = {k: card.ops.get(k, 0) - meta.ops.get(k, 0)
+                    for k in set(card.ops) | set(meta.ops)
+                    if card.ops.get(k, 0) != meta.ops.get(k, 0)}
+        wall_s = trace["wall_ms_per_step"] / 1e3
+        row = {"batch": b, "meta": fields(meta), "card": fields(card),
+               "ops_dispatched_differently": ops_diff,
+               "profiler_launch_calls": trace["launches_per_step"],
+               "profiler_kernel_records": trace["kernel_records_per_step"],
+               "resident_bytes": resident, "allocated_bytes": allocated,
+               "predicted_peak_bytes": card.peak_bytes,
+               "max_memory_allocated_bytes": peak,
+               "L_s": terms.latency, "L_dispatch_s":
+                   terms.hw.dispatch_overhead,
+               "L_terms_s": {"compute": terms.compute_s,
+                             "memory": terms.memory_s,
+                             "collective": terms.collective_s},
+               "wall_s": wall_s,
+               "busy_s": trace["device_busy_ms_per_step"] / 1e3,
+               "wall_over_L": wall_s / terms.latency,
+               "busy_over_L": trace["device_busy_ms_per_step"] / 1e3
+               / terms.latency,
+               "host_s_per_launch": wall_s / card.launches}
+        rows.append(row)
+        print(f"chip_smoke: profile b={b}: launches counted "
+              f"{card.launches} (meta {meta.launches}), profiler launch "
+              f"calls {trace['launches_per_step']:.0f}, kernel records "
+              f"{trace['kernel_records_per_step']:.0f}; L(1, b) "
+              f"{terms.latency * 1e3:.3f} ms, wall {wall_s * 1e3:.3f} ms, "
+              f"busy {row['busy_s'] * 1e3:.3f} ms; peak predicted "
+              f"{card.peak_bytes} / measured {peak}", flush=True)
+        if fields(meta) != fields(card) or ops_diff:
+            failures.append(f"b={b}: the meta count differs from the card's")
+        if card.cost.argument_bytes != resident:
+            failures.append(f"b={b}: argument bytes "
+                            f"{card.cost.argument_bytes} != resident "
+                            f"{resident}")
+        del step, args
+        _free(torch)
+    rep = {"config": cfg.name, "t": 1, "seq_len": PROFILE_SEQ,
+           "rows": rows, "seconds": time.perf_counter() - t0}
+    if failures:
+        rep["failure"] = "; ".join(failures)
+        emit({"phase": "profile", **rep})
+        raise AssertionError("profile: " + rep["failure"])
     return rep
 
 

@@ -14,13 +14,14 @@ from .expert_parallel import apply_moe_ep
 from .sharding import (NamedSharding, PartitionSpec, batch_pspecs,
                        cache_pspecs, current_mesh, distribute_tree,
                        optimizer_pspecs, param_pspec, params_pspecs,
-                       sharded_step, to_named, to_placements, use_mesh)
+                       sharded_step, sharded_zeros, to_named,
+                       to_placements, use_mesh)
 
 __all__ = [
     "NamedSharding", "PartitionSpec", "apply_moe_ep", "batch_pspecs",
     "cache_pspecs", "compressed_psum", "compressed_psum_tree",
     "current_mesh", "dequantize_blockwise", "distribute_tree",
     "optimizer_pspecs", "param_pspec", "params_pspecs", "psum_bytes_saved",
-    "quantize_blockwise", "sharded_step", "to_named", "to_placements",
-    "use_mesh",
+    "quantize_blockwise", "sharded_step", "sharded_zeros", "to_named",
+    "to_placements", "use_mesh",
 ]

@@ -363,6 +363,28 @@ def distribute_tree(tree: PyTree, spec_tree: PyTree, mesh) -> PyTree:
         t, mesh, to_placements(mesh, s)), tree, spec_tree)
 
 
+def sharded_zeros(tree: PyTree, spec_tree: PyTree, mesh, *,
+                  device=None) -> PyTree:
+    """A DTensor of zeros for every tensor of ``tree`` (its shape and
+    dtype; a meta tree will do), laid out by its spec: each rank
+    allocates its own shard on ``device`` (the leaf's by default), and
+    nothing is communicated."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    def one(t, spec):
+        placements = to_placements(mesh, spec)
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh,
+                                                         placements)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=t.dtype, device=device or t.device),
+            mesh, placements, run_check=False, shape=t.shape,
+            stride=t.stride())
+
+    return tree_map(one, tree, spec_tree)
+
+
 # --------------------------------------------------------------------- #
 # the ambient mesh
 # --------------------------------------------------------------------- #
@@ -392,9 +414,9 @@ def sharded_step(param) -> Iterator:
     steps pass their ``embed``): when it is a DTensor, its mesh is
     ambient (unless a mesh already is) and plain tensors mixed with
     DTensors count as replicated (``implicit_replication``: positions,
-    masks, tokens); otherwise nothing changes.  ``lm.decode_step`` and
-    the train step enter it, so they take DTensor parameters as they
-    are."""
+    masks, tokens); otherwise nothing changes.  ``lm.prefill``,
+    ``lm.decode_step`` and the train step enter it, so they take DTensor
+    parameters as they are."""
     from torch.distributed.tensor import DTensor
     if not isinstance(param, DTensor):
         yield
@@ -411,4 +433,5 @@ __all__ = ["BATCH_AXES", "DATA_AXIS", "MODEL_AXIS", "NamedSharding",
            "PartitionSpec", "batch_axes", "batch_pspecs", "cache_pspecs",
            "current_mesh", "distribute_tree", "ep_axes", "mesh_sizes",
            "optimizer_pspecs", "param_pspec", "params_pspecs",
-           "sharded_step", "to_named", "to_placements", "use_mesh"]
+           "sharded_step", "sharded_zeros", "to_named", "to_placements",
+           "use_mesh"]

@@ -8,7 +8,8 @@ from the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ...) unless the caller has started one.  To ask the
 sharding rules about a 256- or 512-rank mesh in one process, start the
 ``"fake"`` backend first (``torch.testing._internal.distributed.fake_pg``
-``FakeStore``) and build the mesh with ``device_type="cpu"``.
+``FakeStore``; :func:`fake_world` does) and build the mesh with
+``device_type="cpu"``.
 
 Each function takes ``device_type=`` and defaults to ``"cuda"``: without
 a card it raises unless the caller asks for ``"cpu"``.
@@ -16,9 +17,32 @@ a card it raises unless the caller asks for ``"cpu"``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 from .. import resolve_device
+
+
+@contextlib.contextmanager
+def fake_world(n_ranks: int) -> Iterator[None]:
+    """A default process group of at least ``n_ranks`` ranks for meshes
+    that hold no device: torch's ``"fake"`` backend, rank 0 of
+    ``n_ranks``, started here and destroyed on exit unless a group of
+    that size or more already runs (then it is used as it is)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_world_size() < n_ranks:
+            raise RuntimeError(f"a process group of {n_ranks} ranks is "
+                               f"needed; {dist.get_world_size()} run")
+        yield
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n_ranks)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
@@ -53,4 +77,5 @@ def make_submesh(n_chips: int, *, model_parallel: Optional[int] = None,
     return make_mesh((dp, tp), ("data", "model"), device_type=device_type)
 
 
-__all__ = ["make_mesh", "make_production_mesh", "make_submesh"]
+__all__ = ["fake_world", "make_mesh", "make_production_mesh",
+           "make_submesh"]

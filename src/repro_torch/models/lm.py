@@ -43,6 +43,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
@@ -329,18 +330,37 @@ def forward(params, batch, cfg: ModelConfig):
 
 def prefill(params, batch, cfg: ModelConfig, max_len: Optional[int] = None):
     """Process the prompt, build the cache, return last-token logits.  An
-    encoder-decoder's cross cache holds its ``frames``' length."""
-    memory = encode(params, batch, cfg) if cfg.is_encdec else None
-    x = _assemble_inputs(params, batch, cfg)
-    B, S = x.shape[0], x.shape[1]
-    cache = init_cache(cfg, B, max_len or S,
-                       memory.shape[1] if memory is not None else 0,
-                       device=x.device)
-    x = _run_layers(params, x, cfg, cache, mode="prefill",
-                    positions=_decoder_positions(x), memory=memory)
-    hidden = apply_norm(params["final_norm"], x[:, -1:], cfg.norm,
-                        cfg.norm_eps)
-    return apply_head(params, hidden, cfg), cache
+    encoder-decoder's cross cache holds its ``frames``' length.  DTensor
+    parameters (``distributed.sharding``'s ``params_pspecs``) run the
+    step on their mesh, as :func:`decode_step`: the cache is then built
+    as DTensors laid out by ``cache_pspecs`` and the logits come back
+    laid out by ``batch_pspecs`` (the reference's ``out_shardings``)."""
+    from ..distributed.sharding import (batch_pspecs, cache_pspecs,
+                                        current_mesh, sharded_step,
+                                        sharded_zeros, to_placements)
+    with sharded_step(params["embed"]):
+        memory = encode(params, batch, cfg) if cfg.is_encdec else None
+        x = _assemble_inputs(params, batch, cfg)
+        B, S = x.shape[0], x.shape[1]
+        mem_len = memory.shape[1] if memory is not None else 0
+        mesh = current_mesh() if isinstance(x, DTensor) else None
+        if mesh is None:
+            cache = init_cache(cfg, B, max_len or S, mem_len,
+                               device=x.device)
+        else:
+            shapes = init_cache(cfg, B, max_len or S, mem_len,
+                                device="meta")
+            cache = sharded_zeros(shapes, cache_pspecs(cfg, shapes, mesh),
+                                  mesh, device=x.device)
+        x = _run_layers(params, x, cfg, cache, mode="prefill",
+                        positions=_decoder_positions(x), memory=memory)
+        hidden = apply_norm(params["final_norm"], x[:, -1:], cfg.norm,
+                            cfg.norm_eps)
+        logits = apply_head(params, hidden, cfg)
+        if mesh is not None:
+            logits = logits.redistribute(mesh, to_placements(
+                mesh, batch_pspecs(logits, mesh)))
+        return logits, cache
 
 
 def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):

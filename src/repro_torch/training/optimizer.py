@@ -9,7 +9,9 @@ with ``master_weights``, an fp32 copy of low-precision parameters is
 kept and updated in their place.  ``torch.optim.AdamW`` does none of
 these three as the reference does.  The step, learning rate and norms
 are 0-d tensors on the parameters' device, so a step needs no host
-synchronisation.
+synchronisation.  DTensor parameters and moments (the moments laid out
+by ``distributed.sharding.optimizer_pspecs``, ZeRO over "data") come
+back each in the layout it came in.
 """
 
 from __future__ import annotations
@@ -71,6 +73,18 @@ def init_adamw(cfg: AdamWConfig, params: PyTree) -> AdamWState:
                       master=master)
 
 
+def _laid_out_as(new: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``new`` in the DTensor layout of ``like`` (the reference's
+    ``out_shardings``): moments laid out by ``optimizer_pspecs`` (ZeRO)
+    meet parameters laid out otherwise, and the update's results would
+    keep whatever layout its ops left them in (``Partial`` included)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(like, DTensor) or (
+            isinstance(new, DTensor) and new.placements == like.placements):
+        return new
+    return new.redistribute(like.device_mesh, like.placements)
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
@@ -107,11 +121,14 @@ def adamw_update(cfg: AdamWConfig, grads: PyTree, state: AdamWState,
     if any(len(f) != len(flat[3]) for f in flat):
         raise ValueError("grads, moments and params differ in structure")
     outs = [upd(*xs) for xs in zip(*flat)]
-    new_master32 = [o[0] for o in outs]
-    new_mu = tree_unflatten(state.mu, [o[1] for o in outs])
-    new_nu = tree_unflatten(state.nu, [o[2] for o in outs])
+    new_master32 = [_laid_out_as(o[0], r) for o, r in zip(outs, flat[3])]
+    new_mu = tree_unflatten(state.mu, [_laid_out_as(o[1], m) for o, m in
+                                       zip(outs, flat[1])])
+    new_nu = tree_unflatten(state.nu, [_laid_out_as(o[2], n) for o, n in
+                                       zip(outs, flat[2])])
     new_params = tree_unflatten(params, [
-        m.to(p.dtype) for m, p in zip(new_master32, tree_leaves(params))])
+        _laid_out_as(m.to(p.dtype), p)
+        for m, p in zip(new_master32, tree_leaves(params))])
     new_master = tree_unflatten(state.master, new_master32) \
         if state.master is not None else None
     metrics = {"grad_norm": gnorm, "lr": lr}

@@ -24,13 +24,24 @@ reference, on the CPU.
   deepseek-v2-236b with ``moe_ep``), match the port's unsharded steps:
   loss within 1e-5, every gradient leaf within 1e-4 of its largest |g|,
   logits within 2e-5 of the largest, the cache within 1e-5.
+* Sharded prefill: on the same mesh, the prefill of all eight cases
+  (DTensor parameters and prompt) matches the unsharded prefill at the
+  decode step's tolerances, builds its cache laid out by
+  ``cache_pspecs`` and its logits by ``batch_pspecs``, and a decode step
+  continues from that cache.
+* ZeRO: two train steps with the moments laid out by
+  ``optimizer_pspecs`` match the unsharded steps in seven cases and
+  return every parameter and moment in the layout it came in; the
+  eighth (deepseek-v2-236b with ``moe_ep``) has specs that name "data"
+  twice, which both sides refuse (pinned by a test).
 * ``make_submesh`` as ``test_submesh_shapes`` has it.
 
 The reference's collectives need 8 devices, which an xdist worker that
 has imported JAX cannot fabricate: they run in a subprocess with
 ``--xla_force_host_platform_device_count=8`` that writes ``.npy`` files.
-The port's ranks run in one spawn of 8 gloo processes
-(``tests/torch_dist_ranks.py``).
+The port's ranks run in two spawns of 8 gloo processes
+(``tests/torch_dist_ranks.py``), the layout checks (ZeRO, prefill) in
+the second.
 """
 
 import os
@@ -362,6 +373,7 @@ def multi_rank(tmp_path_factory):
                          capture_output=True, text=True, timeout=600)
     assert ref.returncode == 0, ref.stderr[-4000:]
     ranks.spawn(str(out))
+    ranks.spawn(str(out), ranks.LAYOUT_CHECKS)
     return out
 
 
@@ -402,6 +414,75 @@ def test_sharded_decode_step_matches_unsharded(multi_rank, case):
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
     assert np.load(multi_rank / f"step_{case}_errs.npy")[2] < 1e-5
+
+
+@pytest.mark.parametrize("case", sorted(ranks.STEP_CASES))
+def test_sharded_prefill_matches_unsharded(multi_rank, case):
+    """The prefill's logits and cache, laid out by ``batch_pspecs`` and
+    ``cache_pspecs``, then a decode step from that cache, at the decode
+    case's tolerances."""
+    laid_out, cache_err, decode_cache_err = np.load(
+        multi_rank / f"prefill_{case}_errs.npy")
+    assert laid_out == 1.0
+    assert cache_err < 1e-5 and decode_cache_err < 1e-5
+    for what in ("logits", "decode_logits"):
+        got, want = np.load(multi_rank / f"prefill_{case}_{what}.npy")
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max(), what
+
+
+@pytest.mark.parametrize("case", ranks.ZERO_CASES)
+def test_zero_train_steps_match_unsharded(multi_rank, case):
+    """Two steps with the moments laid out by ``optimizer_pspecs``: every
+    parameter and moment keeps its layout; the loss within 1e-5, the
+    parameters within 5e-5 (a sixth of one step's largest move, the
+    learning rate 3e-4) and each moment leaf within 1e-4 of its largest
+    value (the gradients' bound)."""
+    for kept, loss, params, moments in np.load(
+            multi_rank / f"zero_{case}_errs.npy"):
+        assert kept == 1.0
+        assert loss <= 1e-5 and params <= 5e-5 and moments <= 1e-4
+
+
+def test_zero_specs_name_an_axis_twice_on_both_sides(fake_world):
+    """With ``moe_ep`` on (2, 4), reduced deepseek-v2-236b's experts
+    shard over ("data", "model"), and the ZeRO rule (the reference's
+    ``DATA_AXIS in dims`` misses the tuple) names "data" again on
+    another dim.  The port keeps the reference's specs: the same leaves
+    get the same specs, the reference's ``NamedSharding`` refuses them
+    and so does the port's ``to_placements``."""
+    from jax._src.named_sharding import DuplicateSpecError
+    from jax.sharding import NamedSharding as JNamedSharding
+    shape, axes = MESHES["2x4"]
+    jmesh = AbstractMesh(shape, axes)
+    mesh = make_mesh(shape, axes, device_type="cpu")
+    arch, overrides = ranks.STEP_CASES["deepseek-v2-236b-moe-ep"]
+    jcfg = jget_config(arch).reduced(**ranks.STEP_REDUCED).with_overrides(
+        **overrides)
+    cfg = get_config(arch).reduced(**ranks.STEP_REDUCED).with_overrides(
+        **overrides)
+    j_shapes = jbuild(jcfg).param_specs()
+    j_zero = _ref_flat(jsh.optimizer_pspecs(
+        jsh.params_pspecs(jcfg, j_shapes, jmesh), j_shapes, jmesh))
+    p_shapes = build_model(cfg).param_specs()
+    zero = _port_flat(sharding.optimizer_pspecs(
+        sharding.params_pspecs(cfg, p_shapes, mesh), p_shapes, mesh))
+
+    def twice(spec):
+        names = [a for e in spec for a in (e if isinstance(e, tuple)
+                                           else (e,)) if a is not None]
+        return len(names) != len(set(names))
+
+    dup = sorted(k for k, v in j_zero.items() if twice(tuple(v)))
+    assert dup == sorted(k for k, v in zero.items() if twice(tuple(v)))
+    assert len(dup) == 6
+    for path in dup:
+        assert zero[path] == tuple(j_zero[path]) == (
+            ("data", "model"), "data", None), path
+        with pytest.raises(DuplicateSpecError):
+            JNamedSharding(jmesh, j_zero[path])
+        with pytest.raises(ValueError, match="axis data used twice"):
+            sharding.to_placements(mesh, zero[path])
 
 
 # --------------------------------------------------------------------- #

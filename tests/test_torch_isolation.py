@@ -9,7 +9,10 @@
 * The launcher's framework-free functions (the simulated, fast, fabric
   and multi-model modes and their helpers) are the reference's
   functions, compared as syntax trees (docstrings included, comments
-  not), so they cannot drift either.
+  not), so they cannot drift either; so are the HLO parser,
+  ``CollectiveStats`` and ``ProgramCost`` that ``launch/step_cost.py``
+  shares with ``hlo_analysis.py``, and ``launch/report.py``'s tables
+  (whose residency column names the H100 in place of v5e).
 * Entry points run on CUDA unless asked: without a card, a call that
   does not pass ``device="cpu"`` raises instead of running on the CPU.
 """
@@ -49,6 +52,20 @@ LAUNCHER_FUNCTIONS = [
 ]
 
 
+# definitions the port's step cost and report share with the reference's
+# hlo_analysis.py and report.py: (reference module, port module, names)
+SHARED_DEFINITIONS = {
+    "step_cost": ("hlo_analysis.py", "step_cost.py", [
+        "CollectiveStats", "ProgramCost", "_COLLECTIVE_RE", "_DTYPE_BYTES",
+        "_SHAPE_RE", "_shape_bytes", "collective_stats"]),
+    "report": ("report.py", "report.py", [
+        "GIB", "dryrun_table", "fmt_bytes", "load", "main",
+        "multi_pod_table", "perf_table", "roofline_table"]),
+}
+# the one string the port's report changes: its card
+REPORT_CARD = ("fits v5e", "fits H100")
+
+
 def _port_modules():
     import repro_torch
     names = ["repro_torch"]
@@ -64,7 +81,13 @@ def test_every_port_module_imports_without_jax_or_reference():
                  "repro_torch.distributed.expert_parallel",
                  "repro_torch.distributed.sharding",
                  "repro_torch.launch.bench_serving",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.hillclimb",
                  "repro_torch.launch.mesh",
+                 "repro_torch.launch.profile_gpu",
+                 "repro_torch.launch.report",
+                 "repro_torch.launch.step_cost",
+                 "repro_torch.core.hardware",
                  "repro_torch.launch.train", "repro_torch.data.pipeline",
                  "repro_torch.training.checkpoint",
                  "repro_torch.training.optimizer",
@@ -116,6 +139,32 @@ def _functions(path):
     tree = ast.parse(path.read_text())
     return {node.name: ast.dump(node) for node in tree.body
             if isinstance(node, ast.FunctionDef)}
+
+
+def _definitions(path):
+    """{name: syntax tree} of a module's top-level functions, classes and
+    assignments to one name."""
+    tree = ast.parse(path.read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("module", sorted(SHARED_DEFINITIONS))
+def test_shared_definitions_match_the_reference(module):
+    ref_file, port_file, names = SHARED_DEFINITIONS[module]
+    ref = _definitions(SRC / "repro" / "launch" / ref_file)
+    port = _definitions(SRC / "repro_torch" / "launch" / port_file)
+    for name in names:
+        want = ref[name]
+        if module == "report":
+            want = want.replace(*REPORT_CARD)
+        assert port[name] == want, f"{port_file}: {name} drifted"
 
 
 @pytest.mark.parametrize("name", LAUNCHER_FUNCTIONS)

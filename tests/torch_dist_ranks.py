@@ -1,6 +1,7 @@
-"""The rank side of ``tests/test_torch_distributed.py``: one spawn of
-8 gloo ranks runs every multi-rank check of the port and writes what it
-got as ``.npy`` files for the test process to compare.
+"""The rank side of ``tests/test_torch_distributed.py``: two spawns of
+8 gloo ranks (:data:`CHECKS`, then :data:`LAYOUT_CHECKS`) run every
+multi-rank check of the port and write what they got as ``.npy`` files
+for the test process to compare.
 
 Imports no JAX (the ranks start from a fresh interpreter and need only
 torch).  Every rank pins torch to one thread and joins its group through
@@ -41,6 +42,10 @@ STEP_CASES = {
     "internvl2-1b": ("internvl2-1b", {}),
 }
 STEP_BATCH, STEP_SEQ, DECODE_LEN, DECODE_POS, MEMORY_LEN = 8, 32, 64, 3, 32
+# the cases whose moments optimizer_pspecs can lay out: with moe_ep on
+# (2, 4), deepseek-v2-236b's experts shard over ("data", "model") and the
+# ZeRO rule names "data" again, which both sides refuse
+ZERO_CASES = tuple(c for c in STEP_CASES if c != "deepseek-v2-236b-moe-ep")
 # expert parallelism: (case, mesh shape, mesh axes, capacity factor)
 EP_CASES = (("model8-cf8", (8,), ("model",), 8.0),
             ("model8-cf1.25", (8,), ("model",), 1.25),
@@ -69,17 +74,23 @@ def _load_tree(path: Path, torch):
     return tree
 
 
-def run(rank: int, out: str) -> None:
+# the checks of one spawn each, by name, in two groups so that
+# each spawn stays well inside its hang guard
+CHECKS = ("_compression", "_expert_parallel", "_sharded_steps")
+LAYOUT_CHECKS = ("_zero_train_steps", "_sharded_prefill")
+
+
+def run(rank: int, out: str, checks=CHECKS) -> None:
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     out = Path(out)
-    dist.init_process_group("gloo", init_method=f"file://{out}/store",
+    dist.init_process_group("gloo",
+                            init_method=f"file://{out}/store{checks[0]}",
                             rank=rank, world_size=WORLD)
     try:
-        _compression(rank, out, torch)
-        _expert_parallel(rank, out, torch)
-        _sharded_steps(rank, out, torch)
+        for name in checks:
+            globals()[name](rank, out, torch)
     finally:
         dist.destroy_process_group()
 
@@ -188,13 +199,145 @@ def _sharded_steps(rank, out, torch):
                 [grad_err, float(laid_out), cache_err]))
 
 
-def spawn(out: str, timeout: float = 300.0) -> None:
-    """Run :func:`run` on :data:`WORLD` spawned ranks; kill them and
-    raise if they have not all finished within ``timeout`` seconds."""
+def _zero_train_steps(rank, out, torch):
+    """Two train steps of each :data:`ZERO_CASES` model with DTensor
+    parameters and batch and the moments laid out by
+    ``optimizer_pspecs`` (ZeRO over "data"), each step against the
+    port's unsharded step from the same state; after each step, the
+    layout of every returned parameter and moment."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import batches_for_model
+    from repro_torch.distributed import (batch_pspecs, distribute_tree,
+                                         optimizer_pspecs, params_pspecs)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, TrainConfig, init_adamw,
+                                      make_train_step)
+    from repro_torch.training.tree import leaves_with_path
+
+    mesh = make_mesh(*MESH_2X4, device_type="cpu")
+    tcfg = TrainConfig(adamw=AdamWConfig(warmup_steps=1))
+    shape = ShapeConfig("t", seq_len=STEP_SEQ, global_batch=STEP_BATCH,
+                        kind="train")
+
+    def same_layout(got, like):
+        return all(tuple(g.placements) == tuple(w.placements)
+                   for (_, g), (_, w) in zip(leaves_with_path(got),
+                                             leaves_with_path(like)))
+
+    def abs_err(got, want):
+        return max(float((g.full_tensor() - w).abs().max())
+                   for (_, g), (_, w) in zip(leaves_with_path(got),
+                                             leaves_with_path(want)))
+
+    def rel_err(got, want):
+        return max(float((g.full_tensor() - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30)
+                   for (_, g), (_, w) in zip(leaves_with_path(got),
+                                             leaves_with_path(want)))
+
+    for case in ZERO_CASES:
+        arch, overrides = STEP_CASES[case]
+        base = get_config(arch).reduced(**STEP_REDUCED)
+        cfg = base.with_overrides(**overrides)
+        params = build_model(base).init(0, device="cpu")
+        p_spec = params_pspecs(cfg, params, mesh)
+        d_params = distribute_tree(params, p_spec, mesh)
+        state = init_adamw(tcfg.adamw, params)
+        o_spec = optimizer_pspecs(p_spec, params, mesh)
+        d_state = state._replace(mu=distribute_tree(state.mu, o_spec, mesh),
+                                 nu=distribute_tree(state.nu, o_spec, mesh))
+        layout = (d_params, d_state.mu, d_state.nu)
+        data = batches_for_model(base, shape)
+        plain_step = make_train_step(base, tcfg)
+        step = make_train_step(cfg, tcfg)
+        errs = []
+        for _ in range(2):
+            batch = {k: torch.as_tensor(v) for k, v in next(data).items()}
+            params, state, want_m = plain_step(params, state, batch)
+            d_batch = distribute_tree(batch, batch_pspecs(batch, mesh), mesh)
+            d_params, d_state, got_m = step(d_params, d_state, d_batch)
+            kept = all(same_layout(g, w) for g, w in zip(
+                (d_params, d_state.mu, d_state.nu), layout))
+            loss = got_m["loss"].full_tensor()
+            errs.append([float(kept),
+                         abs(float(loss) - float(want_m["loss"]))
+                         / abs(float(want_m["loss"])),
+                         abs_err(d_params, params),
+                         max(rel_err(d_state.mu, state.mu),
+                             rel_err(d_state.nu, state.nu))])
+        if rank == 0:
+            _save(out, f"zero_{case}_errs", torch.tensor(errs))
+
+
+def _sharded_prefill(rank, out, torch):
+    """Each :data:`STEP_CASES` model's prefill with DTensor parameters
+    and batch on the (2, 4) mesh against the port's unsharded prefill on
+    the same weights and prompt, its cache's and logits' layouts against
+    the specs, then one decode step from that DTensor cache against the
+    unsharded step from the unsharded cache."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import batches_for_model
+    from repro_torch.distributed import (batch_pspecs, cache_pspecs,
+                                         distribute_tree, params_pspecs,
+                                         to_placements)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training.tree import leaves_with_path
+
+    mesh = make_mesh(*MESH_2X4, device_type="cpu")
+    shape = ShapeConfig("p", seq_len=STEP_SEQ, global_batch=STEP_BATCH,
+                        kind="prefill")
+    tokens = torch.from_numpy(np.load(out / "decode_tokens.npy"))
+
+    def cache_err(got, want):
+        return max(float((g.full_tensor() - w).abs().max())
+                   for (_, g), (_, w) in zip(leaves_with_path(got),
+                                             leaves_with_path(want)))
+
+    for case, (arch, overrides) in STEP_CASES.items():
+        base = get_config(arch).reduced(**STEP_REDUCED)
+        cfg = base.with_overrides(**overrides)
+        plain, model = build_model(base), build_model(cfg)
+        params = plain.init(0, device="cpu")
+        d_params = distribute_tree(params, params_pspecs(cfg, params, mesh),
+                                   mesh)
+        batch = {k: torch.as_tensor(v) for k, v in next(
+            batches_for_model(base, shape)).items() if k != "labels"}
+        want_logits, cache = plain.prefill(params, batch, DECODE_LEN)
+        d_batch = distribute_tree(batch, batch_pspecs(batch, mesh), mesh)
+        got_logits, d_cache = model.prefill(d_params, d_batch, DECODE_LEN)
+        want_spec = cache_pspecs(cfg, d_cache, mesh)
+        laid_out = all(
+            tuple(g.placements) == tuple(to_placements(mesh, s))
+            for (_, g), (_, s) in zip(leaves_with_path(d_cache),
+                                      leaves_with_path(want_spec)))
+        laid_out &= tuple(got_logits.placements) == tuple(to_placements(
+            mesh, batch_pspecs(got_logits, mesh)))
+        prefill_logits = got_logits.full_tensor()
+        prefill_cache_err = cache_err(d_cache, cache)
+        want_dec, _ = plain.decode_step(params, cache, tokens, STEP_SEQ)
+        got_dec, d_cache = model.decode_step(d_params, d_cache, tokens,
+                                             STEP_SEQ)
+        got_dec = got_dec.full_tensor()
+        decode_cache_err = cache_err(d_cache, cache)
+        if rank == 0:
+            _save(out, f"prefill_{case}_logits", torch.stack(
+                [prefill_logits, want_logits]))
+            _save(out, f"prefill_{case}_decode_logits", torch.stack(
+                [got_dec, want_dec]))
+            _save(out, f"prefill_{case}_errs", torch.tensor(
+                [float(laid_out), prefill_cache_err, decode_cache_err]))
+
+
+def spawn(out: str, checks=CHECKS, timeout: float = 300.0) -> None:
+    """Run :func:`run` of ``checks`` on :data:`WORLD` spawned ranks; kill
+    them and raise if they have not all finished within ``timeout``
+    seconds."""
     import torch.multiprocessing as mp
     os.environ.setdefault("OMP_NUM_THREADS", "1")
-    ctx = mp.start_processes(run, args=(out,), nprocs=WORLD, join=False,
-                             start_method="spawn")
+    ctx = mp.start_processes(run, args=(out, checks), nprocs=WORLD,
+                             join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):
         if time.monotonic() > deadline:
