@@ -28,7 +28,11 @@ plane, full-width gemma3-1b training, and the kernels each one runs:
   2);
 * attn-tiny — ``flash_attention`` on its short route (fp32, head dim
   16, S = 16, 8 and 4, unpadded on the card); mlp-tiny and mlp run no
-  kernel of the port.
+  kernel of the port;
+* lm-tiny, the launcher's LM model (reduced gemma3-1b in fp32: 6
+  attention layers, 2 query heads on 1 KV head of 16) —
+  ``flash_attention`` on its short route (prefill at bucket 16) and
+  ``decode_attention`` on the CUDA cores (64-slot caches).
 
 Phases, each printing JSON lines; any failure raises and the script exits
 non-zero:
@@ -44,8 +48,12 @@ non-zero:
    bit), and the serving shapes of the LM paths at B = 1
    and 4 (head dim 64 at 16 heads on 16 and 14 on 2 for seamless-m4t-
    medium and internvl2-1b; decode also at B = 8 and at the serve
-   phase's cache lengths; decode lengths of 1, one split, one split + 1
-   and S; RG-LRU partial chunks and column tiles).  ``decode_attention``
+   phase's cache lengths; decode lengths of 0, 1, one split, one split
+   + 1 and S, where a row of length 0 must be 0 as from the TPU kernel;
+   lm-tiny's decode at B = 1, 2, 4, 8 over 64 slots at head dim 16 and
+   8; GQA groups 17 and 32; an SSD chunk of 40, which the CUDA-core
+   scan pads to 16-row pieces; RG-LRU partial chunks and column
+   tiles).  ``decode_attention``
    and ``ssd_scan`` have two routes each (CUDA cores, tensor cores for
    bf16), ``flash_attention`` three (and the short route for fp32 with
    Sq, Sk <= 16): every case runs through the public wrapper and through
@@ -64,7 +72,9 @@ non-zero:
    host's cadence, which ``host_ms`` reports beside it.  The same timing
    of an empty kernel (``torch.cuda._sleep(0)``) is the per-launch floor
    of ``ms``; at attn-tiny's shapes each route's kernel duration from
-   ``torch.profiler`` is printed beside its ``ms``.
+   ``torch.profiler`` is printed beside its ``ms``.  The blocks a SM
+   that the footprint of the SSD's CUDA-core chunk scan allows (the
+   occupancy calculator) are printed, and must be two.
 3. **model** — per path, one prompt and 8 decode steps through the
    kernels against the same weights through the plain path: gemma3-1b
    1024 tokens (past its 512-token window, so the ring cache rolls),
@@ -158,6 +168,13 @@ non-zero:
    CPU-route call.
 7. **launcher** — ``repro_torch.launch.bench_serving`` on the fast
    simulated plane (step-up, 20 s), twice: the reports must be identical.
+   **launcher_lm** — the launcher's own LM mode on the card,
+   ``bench_serving.main`` with :data:`LM_LAUNCHER_ARGS` (lm-tiny,
+   steady-poisson, 8 s, 4 units, max batch 8): every prompt and decode
+   step completes under every policy and dispatch, with TTFT and TPOT
+   p50/p95; the counts, reset just before and read just after, must show
+   only flash's short route and decode's CUDA-core route
+   (:data:`LM_LAUNCHER_PATHS`) and no CPU-route call.
 8. **serve_online** — ``repro_torch.launch.serve`` with
    ``examples/serve_online.py``'s arguments over 8 s (rate step at 4 s)
    on the card: every request must complete; the reduced model runs no
@@ -199,7 +216,8 @@ non-zero:
      kernels).
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
-(one row per route of each kernel; ``launches_by_path`` includes
+(one row per route of each kernel, and the CUDA-core decode again at
+lm-tiny's shape; ``launches_by_path`` includes ``lm-tiny`` and
 ``train-eval``) and,
 last, ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
 phase 2 (a quick check after editing a kernel).
@@ -218,9 +236,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 MEM_BW = 3.35e12                       # H100 SXM HBM3 bytes/s
-# fp32 and fp64 on the CUDA cores (fp64 outside the tensor cores), bf16
-# dense on the tensor cores: NVIDIA's H100 SXM data sheet
-PEAK = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+# fp32 and fp64 on the CUDA cores (fp64 outside the tensor cores), fp64
+# and bf16 dense on the tensor cores: NVIDIA's H100 SXM data sheet
+PEAK = {"float32": 67e12, "float64": 34e12, "float64_tc": 67e12,
+        "bfloat16": 989e12}
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 SERVE_SECONDS = 8.0
 # trace phase: one prefill of TRACE_PROMPT tokens, then TRACE_DECODE steps
@@ -284,7 +303,17 @@ D64_SERVING = ((16, 16), (14, 2))
 # kernel
 MICRO_PATHS = {"mlp-tiny": {}, "mlp": {},
                "attn-tiny": {"flash_attention": "short"}}
+# the launcher's LM path: lm-tiny's prefill at bucket 16 on flash's short
+# route, its fp32 decode on the CUDA-core route
+LM_LAUNCHER_PATHS = {"lm-tiny": {"flash_attention": "short",
+                                 "decode_attention": "cuda_core"}}
 ATTN_TINY_HD = (2, 16)            # attn-tiny's (heads, head dim)
+# lm-tiny (the launcher's LM model): reduced gemma3-1b in fp32, 6
+# attention layers of 2 query heads on 1 KV head, head dim 16 (8 on its
+# fidelity rungs 1-2), a 64-slot cache; its decode calls take the
+# CUDA-core route, its prefill at bucket 16 flash's short route
+LM_TINY_HEADS, LM_TINY_DIMS, LM_TINY_SLOTS = (2, 1), (16, 8), 64
+LM_TINY_BATCHES = (1, 2, 4, 8)
 ATTN_TINY_SEQS = (16, 8, 4)       # its fidelity rungs' sequence lengths
 MICRO_MLP = {"mlp-tiny": (32, 2), "mlp": (128, 4)}   # width, depth
 MICRO_SECONDS, MICRO_UNITS, MICRO_BATCHES = 4.0, 4, (1, 256)
@@ -292,6 +321,10 @@ MICRO_SECONDS, MICRO_UNITS, MICRO_BATCHES = 4.0, 4, (1, 256)
 SERVE_ONLINE_ARGS = ["--arch", "gemma3-1b", "--duration", "8",
                      "--rate-step", "4", "--initial-batch", "8",
                      "--max-batch", "32"]
+# launcher_lm: the launcher's own LM serving mode, lm-tiny on the card
+LM_LAUNCHER_ARGS = ["--execution", "real", "--real-model", "lm-tiny",
+                    "--scenario", "steady-poisson", "--duration", "8",
+                    "--units", "4", "--max-batch", "8", "--device", "cuda"]
 # train phase: full-width gemma3-1b by the launcher's flags over the
 # launcher's whole schedule (AdamW lr 1e-3, warmup 20, cosine decay to step
 # 100, fp32 moments), an async checkpoint at step 50, resumed to 100; the
@@ -310,8 +343,9 @@ TRAIN_REDUCED = {"n_repeats": 1, "vocab_size": 1024}
 # route of each kernel, timed forced at its headline's shape: flash's
 # tensor cores at gemma3-1b's prefill, its short route and CUDA-core
 # kernel (flash_fwd_kernel) at attn-tiny's, the CUDA-core decode and SSD
-# kernels in fp32 at their bf16 rows' shapes; each row's launches are
-# those of its route
+# kernels in fp32 at their bf16 rows' shapes, and the CUDA-core decode
+# again at lm-tiny's largest decode cell; each row's launches are those
+# of its route
 _CSRC = "src/repro_torch/kernels/csrc/"
 KERNEL_ROWS = (
     ("flash_attention", "flash_attention", "tensor_core",
@@ -325,6 +359,9 @@ KERNEL_ROWS = (
      "src/repro/kernels/decode_attention.py:125"),
     ("decode_attention/cuda_core", "decode_attention/fp32", "cuda_core",
      _CSRC + "decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:125"),
+    ("decode_attention/cuda_core/lm-tiny", "decode_attention/lm-tiny",
+     "cuda_core", _CSRC + "decode_attention.cu",
      "src/repro/kernels/decode_attention.py:125"),
     ("ssd_scan", "ssd_scan", "tensor_core", _CSRC + "ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:72"),
@@ -399,6 +436,9 @@ def main(argv=None) -> int:
         _tally(micro_rep["launches_by_route"], name, launches, by_path)
         emit({"phase": "micro", **micro_rep})
     emit({"phase": "launcher", **phase_launcher()})
+    lm_rep = phase_launcher_lm(torch)
+    _tally(lm_rep["launches_by_route"], "lm-tiny", launches, by_path)
+    emit({"phase": "launcher_lm", **lm_rep})
     emit({"phase": "serve_online", **phase_serve_online(torch)})
     train_rep = phase_train(torch)
     _tally(train_rep["eval"]["launches_by_route"], "train-eval", launches,
@@ -671,6 +711,7 @@ def _reset_counts() -> None:
 # --------------------------------------------------------------------- #
 def phase_kernels(torch):
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops, ref
@@ -843,6 +884,11 @@ def phase_kernels(torch):
     # 1) at S = 1024, 520 valid, B = 1, 4; B = 8 with random lengths;
     # the head-dim-64 paths (16 heads on 16, 14 on 2) at S = 1024 with
     # lengths 1, 64, 65 and 1024, and 520 valid at B = 1, 4
+    # lm-tiny's decode (fp32, 2 heads on 1, D = 16 and its rungs' 8, a
+    # 64-slot cache, full) at B = 1, 2, 4, 8; lengths 0, 1, one split, one
+    # split + 1 and S there and at D = 256; GQA groups 17 and 32 (the
+    # CUDA-core route's row blocks, also at lm-tiny's head dims), 24 (a
+    # partial row block past 16), 17 across 16 splits and 10 on 2 KV heads
     split = decode_mod.SPLIT_ROWS
     decode = []
     for dt in TOL:
@@ -852,8 +898,27 @@ def phase_kernels(torch):
         edges = (1, split, split + 1)
         for H in (1, 2, 4, 8, 16):
             decode.append((dt, 4, 256, H, 1, 64, 256, edges + (256,)))
-        decode.append((dt, 4, 1024, 16, 1, 256, 1024, edges + (1024,)))
+        decode.append((dt, 5, 1024, 16, 1, 256, 1024, (0,) + edges + (1024,)))
         decode.append((dt, 4, 128, 8, 2, 16, 128, edges + (128,)))
+        for B in LM_TINY_BATCHES:
+            for D in LM_TINY_DIMS:
+                decode.append((dt, B, LM_TINY_SLOTS, *LM_TINY_HEADS, D,
+                               LM_TINY_SLOTS, (LM_TINY_SLOTS,) * B))
+        for D in LM_TINY_DIMS:
+            decode.append((dt, 5, LM_TINY_SLOTS, *LM_TINY_HEADS, D,
+                           LM_TINY_SLOTS, (0, 1, 2, split + 1, LM_TINY_SLOTS)))
+            decode.append((dt, 5, 256, *LM_TINY_HEADS, D, 256,
+                           (0,) + edges + (256,)))
+        for H in (17, 32):
+            decode.append((dt, 3, 256, H, 1, 64, 256, (0, split + 1, 256)))
+            for D in LM_TINY_DIMS:
+                decode.append((dt, 3, LM_TINY_SLOTS, H, 1, D, LM_TINY_SLOTS,
+                               (0, 1, LM_TINY_SLOTS)))
+        decode.append((dt, 3, 256, 32, 1, 256, 256, (1, 130, 256)))
+        decode.append((dt, 3, 256, 24, 1, 64, 256, (1, split + 1, 256)))
+        decode.append((dt, 3, 256, 24, 1, 256, 256, (0, split, 256)))
+        decode.append((dt, 3, 1024, 17, 1, 256, 1024, (1, 520, 1024)))
+        decode.append((dt, 2, 512, 20, 2, 128, 512, (split + 1, 512)))
         for B in (1, 8):
             for S in (512, 1024):
                 decode.append((dt, B, S, 4, 1, 256, 1024, None))
@@ -878,6 +943,9 @@ def phase_kernels(torch):
             lengths = torch.tensor(lens, device=dev, dtype=torch.int32)
         got = ops.decode_attention(q, kc, vc, lengths, block_kv=blk)
         want = ref.decode_attention_ref(q, kc, vc, lengths)
+        # a row with no valid position is 0, as from the TPU kernel (the
+        # plain version averages V there)
+        want[lengths == 0] = 0
         torch.cuda.synchronize()
         shape = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
                  "lengths": lengths.tolist()}
@@ -892,7 +960,9 @@ def phase_kernels(torch):
                             route=r)
         same_route("decode_attention", shape, dt, rule,
                    [decode_mod.launch(q, kc, vc, lengths)], [forced[rule]])
-        if D == 256 or (D == 64 and (H, Hkv) in D64_SERVING):
+        lm_tiny = (dt == "float32" and (H, Hkv) == LM_TINY_HEADS
+                   and S == LM_TINY_SLOTS and lens == (S,) * B)
+        if D == 256 or lm_tiny or (D == 64 and (H, Hkv) in D64_SERVING):
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(kc, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(vc, H // Hkv, 2).transpose(1, 2)
@@ -925,15 +995,18 @@ def phase_kernels(torch):
                 "bound_ms": bound_ms, "bound_by": bound_by})
 
     # SSD: tests/test_kernels.py grid, a grouped case with P = 16 (the
-    # tensor cores take it), one chunk (S = chunk), and mamba2-130m's
-    # serving shape at B = 1, 4; the plain version is the sequential
-    # recurrence, y and the final state (evaluated in fp64 for fp32)
+    # tensor cores take it), one chunk (S = chunk), a chunk of 40 (not a
+    # multiple of 16: the CUDA-core scan pads its 16-row pieces) with P =
+    # 12 and N = 20, and mamba2-130m's serving shape at B = 1, 4; the
+    # plain version is the sequential recurrence, y and the final state
+    # (evaluated in fp64 for fp32)
     for dt in TOL:
         for B, S, H, P, G, N, Q in ((1, 64, 2, 8, 1, 16, 16),
                                     (2, 128, 4, 16, 1, 32, 32),
                                     (1, 64, 4, 8, 2, 16, 16),
                                     (1, 64, 4, 16, 2, 16, 16),
                                     (2, 64, 4, 16, 1, 32, 64),
+                                    (2, 120, 4, 12, 2, 20, 40),
                                     (1, 512, 24, 64, 1, 128, 64),
                                     (4, 512, 24, 64, 1, 128, 64)):
             dtype = getattr(torch, dt)
@@ -982,16 +1055,21 @@ def phase_kernels(torch):
                 elem = x.element_size()
                 nbytes = (elem * (2 * B * S * H * P + 2 * B * S * G * N)
                           + 4 * (B * S * H + H + B * H * P * N))
+                # the work the function needs: per chunk the causal
+                # triangle of the scores C B^T (Q(Q+1)/2 dot products of
+                # N) and of M x (of Q(Q+1)/2 columns of P), the chunk's
+                # state (x o w)^T B (Q N P), and C h_in^T (Q N P) on
+                # every chunk but the first, whose h_in is zero
                 chunks = B * H * (S // Q)
-                flops = (2.0 * (Q * Q * N + Q * Q * P + 2 * Q * N * P)
-                         * chunks)
+                tri = Q * (Q + 1) / 2
+                scores = 2.0 * tri * N * chunks
+                rest = 2.0 * (tri * P * chunks + Q * N * P * chunks
+                              + Q * N * P * (chunks - B * H))
+                flops = scores + rest
                 if dt == "float32":
-                    # ssd_kernel forms the scores (Q²N), the intra-chunk
-                    # sum (Q²P) and the inter-chunk term (QNP) in fp64;
-                    # only the state update (QNP) is fp32
-                    flops = {"float64": 2.0 * (Q * Q * N + Q * Q * P
-                                               + Q * N * P) * chunks,
-                             "float32": 2.0 * Q * N * P * chunks}
+                    # the CUDA-core passes form the scores in fp64 on the
+                    # FP64 tensor cores, the rest in fp32
+                    flops = {"float64_tc": scores, "float32": rest}
                 bound_ms, bound_by = _bound(nbytes, flops, dt)
                 wrapper = time_ms(torch, lambda: ops.ssd_scan(
                     *args, chunk=Q), iters=50)
@@ -1057,6 +1135,18 @@ def phase_kernels(torch):
                     "device_kernels_ms": kernel_breakdown(
                         torch, lambda: torch.cuda._sleep(0), iters=100)}
 
+    # blocks a SM the footprint of the SSD's CUDA-core chunk scan allows
+    # at mamba2-130m's widths (the occupancy calculator): it must hold two
+    occupancy = {
+        "ssd_scan/cuda_core": {
+            dt: build.library("ssd_scan").ssd_scan_blocks_per_sm(
+                64, 128, 64, build.DTYPE_CODES[dt]) for dt in TOL}}
+    for dt, n in occupancy["ssd_scan/cuda_core"].items():
+        cases.append({"kernel": "ssd_scan", "dtype": dt,
+                      "shape": {"P": 64, "N": 128, "chunk": 64},
+                      "check": "two chunk-scan blocks a SM",
+                      "blocks_per_sm": n, "ok": n >= 2})
+
     failed = [c for c in cases if not c["ok"]]
     # headline: the serving phase's largest cells in the dtype its calls
     # pass — a 512-token bf16 prefill at b=4, a bf16 decode step at b=4
@@ -1081,6 +1171,13 @@ def phase_kernels(torch):
             and t["shape"]["S"] == 1024 and t["shape"]["H"] == 4
             and t["shape"]["lengths"] == [520] * 4)
            for dt, sfx in (("bfloat16", ""), ("float32", "/fp32"))},
+        # lm-tiny's largest decode cell: B = 8 over its 64-slot cache
+        "decode_attention/lm-tiny": next(
+            t for t in timings["decode_attention"]
+            if t["dtype"] == "float32" and t["shape"]["B"] == 8
+            and t["shape"]["S"] == LM_TINY_SLOTS
+            and (t["shape"]["H"], t["shape"]["Hkv"]) == LM_TINY_HEADS
+            and t["shape"]["D"] == max(LM_TINY_DIMS)),
         **{f"ssd_scan{sfx}": next(t for t in timings["ssd_scan"]
                                   if t["dtype"] == dt
                                   and t["shape"]["B"] == 4)
@@ -1101,7 +1198,7 @@ def phase_kernels(torch):
            "tolerance": {dt: {"atol": a, "rtol": r}
                          for dt, (a, r) in TOL.items()},
            "sleep_cycles_per_ms": _cycles_per_ms(torch),
-           "launch_floor": launch_floor,
+           "launch_floor": launch_floor, "blocks_per_sm": occupancy,
            "timings": timings, "headline": headline}
     if failed:
         emit({"phase": "kernels", **rep})
@@ -2210,6 +2307,67 @@ def phase_launcher():
             "seconds": time.perf_counter() - t0, "offered": sc["offered"],
             "p95_ms": {k: sc[k]["latency_ms"]["p95"]
                        for k in sc["policies"]}}
+
+
+# --------------------------------------------------------------------- #
+# phase 7b: the launcher's LM serving mode, lm-tiny on the card
+# --------------------------------------------------------------------- #
+def phase_launcher_lm(torch):
+    """``bench_serving.main`` with :data:`LM_LAUNCHER_ARGS`: every prompt
+    and decode step completes under every policy, TTFT and TPOT p50/p95
+    are reported, and the counts, reset just before and read just after,
+    show lm-tiny's flash calls on the short route and its decode calls on
+    the CUDA cores only, with no CPU-route call."""
+    import contextlib
+    import io
+    from repro_torch.launch import bench_serving
+    out = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench_serving.main(LM_LAUNCHER_ARGS)
+    seconds = time.perf_counter() - t0
+    counts, cpu_calls = _counts()
+    rep = {"argv": LM_LAUNCHER_ARGS, "seconds": seconds,
+           "launches_by_route": counts, "cpu_calls": cpu_calls}
+    if rc != 0:
+        emit({"phase": "launcher_lm", **rep})
+        raise AssertionError(f"launcher_lm: bench_serving exited {rc}")
+    report = json.loads(out.getvalue())
+    sc = report["scenarios"]["steady-poisson"]
+    prompts, steps = sc["offered_prompts"], sc["decode_steps"]
+    rep.update({"offered_prompts": prompts, "decode_steps": steps,
+                "offered_rate_rps": sc["offered_rate_rps"],
+                "rate_capped": sc["rate_capped"],
+                "slo_deadline_ms": sc["slo_deadline_ms"],
+                "measured_profile_ms": sc["measured_profile_ms"],
+                "policies": {}})
+    failed = []
+    for key in sc["policies"]:
+        r = sc[key]
+        phases = r["phases"]
+        entry = {
+            "prompts_completed": phases["prefill"]["completed"],
+            "decode_steps_completed": phases["decode"]["completed"],
+            "incomplete": r["incomplete"],
+            "ttft_ms": {q: r["ttft_ms"].get(q) for q in ("p50", "p95", "p99")},
+            "tpot_ms": {q: r["tpot_ms"].get(q) for q in ("p50", "p95", "p99")},
+            "unit_split": r["unit_split"]}
+        rep["policies"][key] = entry
+        if (entry["prompts_completed"] != prompts
+                or entry["decode_steps_completed"] != prompts * steps
+                or entry["incomplete"]
+                or any(entry[m][q] is None for m in ("ttft_ms", "tpot_ms")
+                       for q in ("p50", "p95"))):
+            failed.append(key)
+    if failed or prompts <= 0 or not all(
+            any(k.split("+")[0] == p for k in sc["policies"])
+            for p in ("static", "packrat")):
+        emit({"phase": "launcher_lm", **rep})
+        raise AssertionError("launcher_lm: not every prompt and decode step "
+                             f"completed with TTFT and TPOT under {failed}")
+    _check_launches("lm-tiny", counts, cpu_calls, LM_LAUNCHER_PATHS["lm-tiny"])
+    return rep
 
 
 # --------------------------------------------------------------------- #

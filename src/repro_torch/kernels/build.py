@@ -149,7 +149,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.decode_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                              i, f, i, i, p]
         lib.decode_attention_fwd.restype = i
-        lib.decode_attention_smem_bytes.argtypes = [i, i, i]
+        lib.decode_attention_smem_bytes.argtypes = [i, i, i, i]
         lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
     elif name == "ssd_scan":
         lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
@@ -157,6 +157,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_fwd.restype = i
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_scan_blocks_per_sm.argtypes = [i, i, i, i]
+        lib.ssd_scan_blocks_per_sm.restype = i
     elif name == "rglru_scan":
         lib.rglru_scan_fwd.argtypes = [p, p, p, i, i, i, i, p]
         lib.rglru_scan_fwd.restype = i

@@ -33,11 +33,7 @@
 // where a forced route cannot take the shape.
 //
 // Tensor-core route (bf16, D = 16..256, rep <= 16): `decode_tc_kernel`.
-// The CUDA-core kernel takes ~23 us at every batch and length: scalar
-// 2-byte loads converted to fp32 in shared memory, scores computed by
-// rep * 32 of 256 threads as D-long dependent FMA chains, and load,
-// scores, softmax and P V in series.  Here the block issues 16-byte cp.async
-// copies of Q, its K tile and its V tile at once (V in a second group,
+// The block issues 16-byte cp.async copies of Q, its K tile and its V tile at once (V in a second group,
 // so the scores run while V lands); K and V stay bf16 in shared memory
 // with rows padded by 16 bytes so ldmatrix's row reads hit distinct
 // banks.  S = Q K^T runs on mma.sync m16n8k16 with the group's query
@@ -47,11 +43,42 @@
 // shared memory as bf16 and is the A operand of O = P V, with V read by
 // ldmatrix.trans and the warps splitting D.
 //
-// CUDA-core route (fp32, head dim 8, groups above 16): `decode_kernel`,
-// on the same 64-row splits, walked in two 32-row tiles: fp32
-// stays off the tensor cores because TF32 (~1e-3) misses its 2e-5
-// tolerance, head dim 8 because mma needs a depth of 16.
-//
+// CUDA-core route (fp32, head dim 8, groups above 16, forced bf16):
+// `decode_kernel`.  fp32 stays off the tensor cores because TF32 (~1e-3)
+// misses its 2e-5 tolerance, head dim 8 because mma needs a depth of 16.
+// The route is bound like the other by latency: at fp32 a split moves
+// 2 * 64 * D * 4 bytes (128 KB at D = 256) into one SM, and its arithmetic
+// (4 * rep * 64 * D flops) is a few hundred cycles of one SM's FMAs, so
+// what counts is the chain of one block: no serial tiles, no long chains
+// of dependent FMAs, no idle warps.  The kernel takes the tensor-core
+// kernel's layout with fp32 FMAs in place of mma:
+//   * the split's whole K tile, then its V tile, are copied with 16-byte
+//     cp.async in two commit groups, so the scores run while V lands;
+//     rows past the split's valid length are not copied (their scores
+//     are masked, and P V stops at the valid length).  Rows stay
+//     unpadded in the storage type: every read below has a warp's lanes
+//     on consecutive 16-byte chunks of consecutive rows, which hit
+//     distinct banks without padding;
+//   * all 8 warps compute scores: warp w takes keys 8w .. 8w + 7, the
+//     lanes of one dot product split D in 16-byte chunks (min(D / VEC,
+//     32) lanes; the other lanes of the warp take other keys), the query
+//     rows of a block of kRows sit in registers against each K chunk, and
+//     the partial sums meet by shuffles;
+//   * one softmax over the split's 64 keys (no second tile, no rescale);
+//   * P V: threads run along D in 16-byte chunks and the key groups split
+//     the keys; partial sums meet by shuffles within a warp, then across
+//     warps in shared memory laid over the K tile, which is dead by then;
+//   * groups above kRows rows loop over blocks of kRows query heads, so
+//     registers do not grow with the group (groups 17..32 and more).
+// Shared memory: 2 * 64 * D * sizeof(T) for K and V plus 4 * (rep * D +
+// 64 * rep + 2 * rep) bytes: fp32 at D = 256 and a group of 4 takes 136 KB,
+// one block per SM (the 132 SMs hold a decode call's 4 * 16 splits at
+// once); bf16 there 71 KB, three a SM; lm-tiny's fp32 D = 16 group of 2
+// takes 9.4 KB, six a SM (the CUDA occupancy calculator on an H100).
+// What is left of a call at lm-tiny's shapes is one round trip to device
+// memory and the chain of four barriers between copy, scores, softmax,
+// P V and the partial sums.
+
 // The combine, both routes: one block per (row of the group, KV head,
 // batch row), threads along D.  It reads each live split's m and l once
 // into shared memory, computes each split's weight once, and sums the
@@ -70,10 +97,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -0.7f * 3.402823466e38f;  // -0.7 * FLT_MAX
 constexpr int kSplit = 64;       // cache rows per split
-constexpr int kTile = 32;        // CUDA-core KV tile == warp size
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSS = kTile + 1;   // padded stride of the score tile
+constexpr int kRows = 4;         // CUDA-core: query heads per register block
 constexpr int kTcRows = 16;      // mma rows: the group, zero-padded
 constexpr int kTcMaxGroup = 16;
 constexpr int kCombineThreads = 64;
@@ -103,16 +129,33 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// 16 bytes of T from shared memory, as fp32
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void load16(const bf16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 f = __bfloat1622float2(h[u]);
+    v[2 * u] = f.x;
+    v[2 * u + 1] = f.y;
+  }
+}
+
 bool tc_takes(int dtype, int D, int rep) {
   return dtype == 1 && rep >= 1 && rep <= kTcMaxGroup &&
          (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
 }
 
-size_t smem_bytes(int rep, int D) {
-  // q (rep x D), k (tile x D+1), v (tile x D), scores (rep x tile+1),
-  // acc (rep x D), m / l / alpha (rep each)
-  return sizeof(float) * ((size_t)rep * D + kTile * (D + 1) + kTile * D +
-                          (size_t)rep * kSS + (size_t)rep * D + 3 * rep);
+size_t smem_bytes(int rep, int D, size_t elem) {
+  // k and v (64 x D, storage type); q (rep x D), p (rep rounded up to
+  // kRows, x 64) and (m, l) of each row in fp32
+  const size_t rp = (size_t)(rep + kRows - 1) / kRows * kRows;
+  return elem * 2 * kSplit * D +
+         sizeof(float) * ((size_t)rep * D + rp * kSplit + 2 * (size_t)rep);
 }
 
 size_t tc_smem_bytes(int D) {
@@ -134,115 +177,219 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               T* __restrict__ o, float* __restrict__ ws_acc,
               float* __restrict__ ws_ml, int S, int H, int Hkv,
               float scale) {
-  static_assert(kTile * D % kThreads == 0, "tile loads must split evenly");
-  constexpr int DP = D + 1;
+  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte chunk
+  constexpr int CH = D / VEC;             // chunks per row: 1 .. 64
+  // scores: LPK lanes per dot product, GPW dot products per warp pass,
+  // CPL chunks per lane
+  constexpr int LPK = CH < 32 ? CH : 32;
+  constexpr int GPW = 32 / LPK;
+  constexpr int CPL = CH / LPK;
+  // P V: KG key groups of CH threads; NP partials of each output left
+  // after the shuffles (one per warp, or per key group when CH >= 32)
+  constexpr int KG = kThreads / CH;
+  constexpr int NP = CH < 32 ? kWarps : KG;
+  static_assert(D % VEC == 0 && CH <= 64, "a row is 1 .. 64 chunks");
+  static_assert(NP * kRows * D * sizeof(float) <= kSplit * D * sizeof(T),
+                "P V's partial sums fit over the K tile");
+
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / Hkv;
+  const int rp = (rep + kRows - 1) / kRows * kRows;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);               // 64 x D
+  T* vs = ks + kSplit * D;                              // 64 x D
+  float* qs = reinterpret_cast<float*>(vs + kSplit * D);  // rep x D
+  float* ps = qs + rep * D;                             // rp x 64
+  float* ml = ps + rp * kSplit;                         // rep x (m, l)
+  float* red = reinterpret_cast<float*>(smem_raw);      // NP x kRows x D
+
   const int start = split * kSplit;
-  const int end = min(start + kSplit, min(lengths[b], S));
-  if (ws_acc != nullptr && start >= end) return;  // the combine skips it
-
-  extern __shared__ float smem[];
-  float* qs = smem;                 // rep x D
-  float* ks = qs + rep * D;         // kTile x DP
-  float* vs = ks + kTile * DP;      // kTile x D
-  float* ss = vs + kTile * D;       // rep x kSS
-  float* accs = ss + rep * kSS;     // rep x D
-  float* ms = accs + rep * D;       // rep
-  float* ls = ms + rep;             // rep
-  float* as = ls + rep;             // rep
-
-  // the group's query heads hk*rep .. hk*rep+rep-1 are contiguous
+  const int n = min(start + kSplit, min(lengths[b], S)) - start;
   const size_t q_off = ((size_t)b * H + (size_t)hk * rep) * D;
-  for (int i = tid; i < rep * D; i += kThreads) {
-    qs[i] = to_f32(q[q_off + i]);
-    accs[i] = 0.f;
-  }
-  for (int i = tid; i < rep; i += kThreads) {
-    ms[i] = kNegInf;
-    ls[i] = 0.f;
+  if (n <= 0) {
+    if (ws_acc == nullptr)              // one split and an empty row: 0
+      for (int i = tid; i < rep * D; i += kThreads) o[q_off + i] = from_f32<T>(0.f);
+    return;                             // the combine skips it
   }
 
-  for (int k_lo = start; k_lo < end; k_lo += kTile) {
-    __syncthreads();  // previous tile fully consumed; init visible
-    // a compile-time trip count lets every load of the tile be in flight
-    // at once (kTile * D is a multiple of kThreads for every D built)
+  // K (group 0), then V (group 1): the n valid rows, 16 bytes a copy
+  const size_t kv_stride = (size_t)Hkv * D;
+  const size_t base = ((size_t)b * S + start) * kv_stride + (size_t)hk * D;
+  for (int i = tid; i < n * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    mma::cp_async16(ks + r * D + c * VEC, kc + base + r * kv_stride + c * VEC,
+                    16);
+  }
+  mma::cp_async_commit();
+  for (int i = tid; i < n * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    mma::cp_async16(vs + r * D + c * VEC, vc + base + r * kv_stride + c * VEC,
+                    16);
+  }
+  mma::cp_async_commit();
+  for (int i = tid; i < rep * D; i += kThreads) qs[i] = to_f32(q[q_off + i]);
+  mma::cp_async_wait<1>();
+  __syncthreads();                        // q and K have landed
+
+  // scores: warp w takes keys 8w .. 8w + 7; group g of LPK lanes one key
+  // a pass, lane lp its chunks lp, lp + LPK, ...
+  {
+    const int g = lane / LPK, lp = lane % LPK;
+    for (int r0 = 0; r0 < rep; r0 += kRows) {
+      float qv[kRows][CPL][VEC];
 #pragma unroll
-    for (int j = 0; j < kTile * D / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / D, d = i % D;
-      const int s = k_lo + r;
-      float kx = 0.f, vx = 0.f;
-      if (s < end) {
-        const size_t off = ((size_t)(b * S + s) * Hkv + hk) * D + d;
-        kx = to_f32(kc[off]);
-        vx = to_f32(vc[off]);
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int i = 0; i < CPL; ++i) {
+          if (r0 + r < rep) {
+            const float* src = qs + (r0 + r) * D + (lp + LPK * i) * VEC;
+#pragma unroll
+            for (int e = 0; e < VEC; e += 4) {
+              const float4 x4 = *reinterpret_cast<const float4*>(src + e);
+              qv[r][i][e] = x4.x;
+              qv[r][i][e + 1] = x4.y;
+              qv[r][i][e + 2] = x4.z;
+              qv[r][i][e + 3] = x4.w;
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) qv[r][i][e] = 0.f;
+          }
+        }
+      // a warp-uniform trip count: every lane reaches the shuffles
+#pragma unroll
+      for (int k0 = 0; k0 < 8; k0 += GPW) {
+        const int jl = k0 + g;            // key within the warp's 8
+        const int j = warp * 8 + (jl < 8 ? jl : 0);
+        float kv[CPL][VEC];
+#pragma unroll
+        for (int i = 0; i < CPL; ++i)
+          load16(ks + j * D + (lp + LPK * i) * VEC, kv[i]);
+        float dot[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          dot[r] = 0.f;
+#pragma unroll
+          for (int i = 0; i < CPL; ++i)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              dot[r] = fmaf(qv[r][i][e], kv[i][e], dot[r]);
+#pragma unroll
+          for (int off = LPK / 2; off > 0; off >>= 1)
+            dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
+        }
+        if (lp == 0 && jl < 8) {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (r0 + r < rep)   // rows past n hold stale data: masked
+              ps[(r0 + r) * kSplit + j] = j < n ? dot[r] * scale : kNegInf;
+        }
       }
-      ks[r * DP + d] = kx;
-      vs[r * D + d] = vx;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < rep * kTile; i += kThreads) {
-      const int r = i / kTile, kk = i % kTile;
-      const float* qrow = qs + r * D;
-      const float* krow = ks + kk * DP;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qrow[d], krow[d], dot);
-      ss[r * kSS + kk] = (k_lo + kk < end) ? dot * scale : kNegInf;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < rep; r += kWarps) {
-      const float m_prev = ms[r];
-      const float l_prev = ls[r];
-      const float sc = ss[r * kSS + lane];
-      const float m_new = fmaxf(m_prev, warp_max(sc));
-      const float p = expf(sc - m_new);
-      const float psum = warp_sum(p);
-      ss[r * kSS + lane] = p;
-      __syncwarp();  // every lane has read m/l before lane 0 writes them
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        as[r] = alpha;
-        ls[r] = l_prev * alpha + psum;
-        ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < rep * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const float* prow = ss + r * kSS;
-      float a = accs[i] * as[r];
-#pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) a = fmaf(prow[kk], vs[kk * D + c], a);
-      accs[i] = a;
     }
   }
   __syncthreads();
 
-  if (ws_acc == nullptr) {
-    for (int i = tid; i < rep * D; i += kThreads) {
-      const int r = i / D;
-      o[q_off + i] = from_f32<T>(accs[i] / fmaxf(ls[r], 1e-30f));
+  // one softmax per row over the split's 64 keys, two keys a lane; the
+  // rows that pad the last block of kRows get p = 0
+  for (int r = warp; r < rp; r += kWarps) {
+    float* prow = ps + r * kSplit;
+    if (r >= rep) {
+      prow[lane] = 0.f;
+      prow[lane + 32] = 0.f;
+      continue;
     }
-    return;
+    const float s0 = prow[lane], s1 = prow[lane + 32];
+    const float m = warp_max(fmaxf(s0, s1));
+    const float p0 = expf(s0 - m), p1 = expf(s1 - m);
+    const float l = warp_sum(p0 + p1);
+    prow[lane] = p0;
+    prow[lane + 32] = p1;
+    if (lane == 0) {
+      ml[2 * r] = m;
+      ml[2 * r + 1] = l;
+    }
   }
+  mma::cp_async_wait<0>();
+  __syncthreads();                        // V, p, m and l
+
+  // O = P V: thread (key group kg, chunk c) over keys kg, kg + KG, ...
+  const int c = tid % CH, kg = tid / CH;
   const size_t part = (size_t)(b * Hkv + hk) * gridDim.x + split;
-  float* pacc = ws_acc + part * rep * D;
-  float* pml = ws_ml + part * rep * 2;
-  for (int i = tid; i < rep * D; i += kThreads) pacc[i] = accs[i];
-  for (int r = tid; r < rep; r += kThreads) {
-    pml[2 * r] = ms[r];
-    pml[2 * r + 1] = ls[r];
+  for (int r0 = 0; r0 < rep; r0 += kRows) {
+    float acc[kRows][VEC];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+    for (int j = kg; j < n; j += KG) {
+      float v[VEC];
+      load16(vs + j * D + c * VEC, v);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float p = ps[(r0 + r) * kSplit + j];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(p, v[e], acc[r][e]);
+      }
+    }
+    if (CH < 32) {                        // key groups within a warp
+#pragma unroll
+      for (int off = CH; off < 32; off <<= 1)
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+    }
+    __syncthreads();                      // the last block's sums are read
+    if (CH >= 32 || lane < CH) {
+      const int pi = CH < 32 ? warp : kg;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(red + (pi * kRows + r) * D + c * VEC +
+                                     e) =
+              make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2],
+                          acc[r][e + 3]);
+    }
+    __syncthreads();
+    // the NP partials of each output, one float4 a thread
+    for (int i = tid; i < kRows * D / 4; i += kThreads) {
+      const int r = i / (D / 4), d = (i % (D / 4)) * 4;
+      const int row = r0 + r;
+      if (row >= rep) continue;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp) {
+        const float4 x4 =
+            *reinterpret_cast<const float4*>(red + (pp * kRows + r) * D + d);
+        s.x += x4.x;
+        s.y += x4.y;
+        s.z += x4.z;
+        s.w += x4.w;
+      }
+      if (ws_acc == nullptr) {
+        const float inv = 1.f / fmaxf(ml[2 * row + 1], 1e-30f);
+        T* orow = o + q_off + (size_t)row * D + d;
+        orow[0] = from_f32<T>(s.x * inv);
+        orow[1] = from_f32<T>(s.y * inv);
+        orow[2] = from_f32<T>(s.z * inv);
+        orow[3] = from_f32<T>(s.w * inv);
+      } else {
+        *reinterpret_cast<float4*>(ws_acc + (part * rep + row) * D + d) = s;
+      }
+    }
   }
+  if (ws_acc != nullptr)
+    for (int r = tid; r < rep; r += kThreads) {
+      ws_ml[(part * rep + r) * 2] = ml[2 * r];
+      ws_ml[(part * rep + r) * 2 + 1] = ml[2 * r + 1];
+    }
 }
 
 // Tensor-core split kernel (bf16): one 64-row split of one (KV head,
@@ -497,7 +644,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* o, float* ws_acc, float* ws_ml, int n_split, int B, int S,
            int H, int Hkv, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H / Hkv, D);
+  const size_t smem = smem_bytes(H / Hkv, D, sizeof(T));
   auto kernel = decode_kernel<T, D>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -572,10 +719,12 @@ int launch_combine(const float* wa, const float* wm, const int* lengths,
 }  // namespace
 
 // Bytes of shared memory one split block of `route` (1 CUDA cores, 2
-// tensor cores) needs; the wrapper refuses a group that does not fit
-// the card's 227 KB.
-extern "C" long long decode_attention_smem_bytes(int rep, int D, int route) {
-  return (long long)(route == 2 ? tc_smem_bytes(D) : smem_bytes(rep, D));
+// tensor cores) needs for dtype (0 fp32, 1 bf16); the wrapper refuses a
+// group that does not fit the card's 227 KB.
+extern "C" long long decode_attention_smem_bytes(int rep, int D, int dtype,
+                                                 int route) {
+  return (long long)(route == 2 ? tc_smem_bytes(D)
+                                : smem_bytes(rep, D, dtype == 1 ? 2 : 4));
 }
 
 // Returns 0 on success, the cudaError_t of a refused launch, or -1 for a

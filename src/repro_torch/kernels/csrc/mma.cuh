@@ -11,6 +11,12 @@
 //
 // so the C fragment of one product, rounded to bf16 in pairs, is the A
 // fragment of the next (two neighbouring n-tiles make one k-step).
+//
+// mma.sync m8n8k4 in fp64 (the FP64 tensor cores), one element a lane:
+//
+//   A (8 x 4, row-major)    a0 (g, t)
+//   B (4 x 8, k-major)      b0 (k t, n g)
+//   C (8 x 8, fp64)         c0 c1 (g, 2t..2t+1)
 
 #pragma once
 
@@ -59,6 +65,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b for one 8 x 8 x 4 tile, all fp64.
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
 }
 
 // Two floats rounded to bf16 (nearest even), lo in the low half.

@@ -57,11 +57,11 @@ def route(dtype: str, head_dim: int, rep: int) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_bytes(rep: int, D: int, taken: str) -> int:
+def _smem_bytes(rep: int, D: int, dtype: str, taken: str) -> int:
     """Shared memory of one split block, asked of the library once per
-    (group, head dim, route)."""
+    (group, head dim, dtype, route)."""
     return build.library("decode_attention").decode_attention_smem_bytes(
-        rep, D, build.ROUTE_CODES[taken])
+        rep, D, build.DTYPE_CODES[dtype], build.ROUTE_CODES[taken])
 
 
 def _dtype_name(dtype) -> str:
@@ -151,7 +151,7 @@ def launch(q, k_cache, v_cache, lengths, *, force: str = ""):
     dev = q.device
     dtype = _dtype_name(q.dtype)
     taken = force or route(dtype, D, rep)
-    if _smem_bytes(rep, D, taken) > build.MAX_SMEM_BYTES:
+    if _smem_bytes(rep, D, dtype, taken) > build.MAX_SMEM_BYTES:
         raise ValueError(f"decode_attention: a GQA group of {rep} heads at "
                          f"D={D} does not fit one block")
     q, k_cache, v_cache = build.aligned(q), build.aligned(k_cache), \

@@ -24,8 +24,9 @@ from .ref import ssd_scan_ref
 stats = build.KernelStats()
 
 TC_MAX_CHUNK = 128
-# device kernels one call enqueues, by route
-KERNELS_PER_CALL = {"tensor_core": 3, "cuda_core": 1}
+# device kernels one call enqueues on either route: chunk states, the
+# state pass and the chunk scan
+KERNELS_PER_CALL = 3
 
 
 def tc_smem_bytes(P: int, N: int, chunk: int) -> int:
@@ -111,7 +112,6 @@ def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
     dtype = str(x.dtype).removeprefix("torch.")
     taken = force or route(dtype, P, N, chunk)
     lib = build.library("ssd_scan")
-    ws = h_in = cs_end = None
     if taken == "cuda_core":
         if P % 4 or N % 4 or chunk % 4:
             raise ValueError(f"ssd_scan: head dim P={P}, state N={N} and "
@@ -119,12 +119,16 @@ def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
         if lib.ssd_scan_smem_bytes(P, N, chunk) > build.MAX_SMEM_BYTES:
             raise ValueError(f"ssd_scan: P={P}, N={N}, chunk={chunk} does "
                              "not fit one block's shared memory")
-    else:
-        nc = S // chunk
-        ws = torch.empty((Bb, H, nc, P, N), dtype=torch.float32, device=dev)
-        h_in = torch.empty((Bb, H, nc, 2, P, N), dtype=torch.bfloat16,
-                           device=dev)
-        cs_end = torch.empty((Bb, H, nc), dtype=torch.float32, device=dev)
+    # workspaces of the three passes: the chunks' state increments, the
+    # state entering each chunk (fp32 on the CUDA cores, a bf16 pair on
+    # the tensor cores: the same bytes) and each chunk's decay
+    nc = S // chunk
+    ws = torch.empty((Bb, H, nc, P, N), dtype=torch.float32, device=dev)
+    h_in = (torch.empty((Bb, H, nc, P, N), dtype=torch.float32, device=dev)
+            if taken == "cuda_core" else
+            torch.empty((Bb, H, nc, 2, P, N), dtype=torch.bfloat16,
+                        device=dev))
+    cs_end = torch.empty((Bb, H, nc), dtype=torch.float32, device=dev)
     x, B_in, C_in = build.aligned(x), build.aligned(B_in), build.aligned(C_in)
     dt = dt.to(torch.float32).contiguous()
     a_log = a_log.to(torch.float32).contiguous()
@@ -132,11 +136,10 @@ def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
     state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
     err = lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B_in.data_ptr(),
-        C_in.data_ptr(), y.data_ptr(), state.data_ptr(),
-        *(t.data_ptr() if t is not None else None
-          for t in (ws, h_in, cs_end)), Bb, S, H, G, P, N, chunk,
+        C_in.data_ptr(), y.data_ptr(), state.data_ptr(), ws.data_ptr(),
+        h_in.data_ptr(), cs_end.data_ptr(), Bb, S, H, G, P, N, chunk,
         build.DTYPE_CODES[dtype], code,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check("ssd_scan", err)
-    stats.launched(KERNELS_PER_CALL[taken], route=taken)
+    stats.launched(KERNELS_PER_CALL, route=taken)
     return y, state

@@ -11,7 +11,12 @@ plus head dim 8, the serving shapes (head dim 64 at GQA groups 1 and 7
 for seamless-m4t-medium and internvl2-1b), and attn-tiny's flash
 shapes (fp32, head dim 16, S = 16, 8, 4, B up to 256) on flash's short
 route: its limits, unpadded calls against padded ones bit for bit, and
-the CUDA-core kernel forced beside it.
+the CUDA-core kernel forced beside it.  Decode also runs at lm-tiny's
+shapes (fp32, 2 heads on 1, D = 16 and 8, B up to 8 over 64 slots), at
+GQA groups 10, 17, 24 and 32 and at lengths 0, 1, 64, 65 and S (a row
+of length 0 is 0, as from the TPU kernel), and the SSD at a chunk of
+40; every route of decode and the SSD is forced and counted (an SSD
+call is three kernels, a decode call two past one split).
 """
 
 import numpy as np
@@ -208,6 +213,7 @@ SSD_ROUTE_GRID = SSD_GRID + [
     (1, 64, 4, 16, 2, 16, 16),      # grouped, P = 16: tensor cores
     (2, 64, 4, 16, 1, 32, 64),      # one chunk (S = chunk)
     (1, 512, 24, 64, 1, 128, 64),   # mamba2-130m serving shape, B = 1
+    (2, 120, 4, 12, 2, 20, 40),     # a chunk of 40: padded 16-row pieces
 ]
 
 
@@ -225,8 +231,11 @@ def test_cuda_ssd_scan_routes_match_plain(cuda, B, S, H, P, G, N, chunk,
     args = (x, dt, a_log, B_in, C_in)
     want_y, want_h = _ssd_want(*args)
     rule = ssd_mod.route(dtype, P, N, chunk)
+    stats = KERNEL_STATS["ssd_scan"]
     for r in _routes(rule):
+        before = stats.launches_by_route.get(r, 0)
         y, h = ssd_mod.launch(*args, chunk=chunk, force=r)
+        assert stats.launches_by_route[r] - before == 3   # three passes
         _close(y.cpu(), want_y.cpu().float().numpy(), dtype)
         _close(h.cpu(), want_h.cpu().numpy(), dtype)
         if r == rule:
@@ -248,6 +257,23 @@ DECODE_ROUTE_GRID = [(*case, None) for case in DECODE_GRID] + [
     (4, 1024, 16, 16, 64, DECODE_EDGES + (1024,)),
     (4, 1024, 14, 2, 64, DECODE_EDGES + (1024,)),
     (4, 1024, 14, 2, 64, (520,) * 4),
+    # lm-tiny: fp32 on the CUDA cores, 2 heads on 1, D = 16 (8 on its
+    # rungs), 64 slots; rows of length 0; GQA groups 17 and 32 (the
+    # CUDA-core route's blocks of query heads)
+    *[(B, 64, 2, 1, D, (64,) * B) for B in (1, 2, 4, 8) for D in (16, 8)],
+    *[(5, 64, 2, 1, D, (0, 1, 2, 65, 64)) for D in (16, 8)],
+    *[(5, 256, 2, 1, D, (0,) + DECODE_EDGES + (256,)) for D in (16, 8)],
+    (5, 1024, 16, 1, 256, (0,) + DECODE_EDGES + (1024,)),
+    (3, 256, 17, 1, 64, (0, 65, 256)),
+    (3, 256, 32, 1, 64, (1, 64, 256)),
+    (3, 256, 32, 1, 256, (1, 130, 256)),
+    # groups 17 and 32 at lm-tiny's head dims, 24 (a partial row block
+    # past 16) and 17 across 16 splits, and a group of 10 on 2 KV heads
+    *[(3, 64, H, 1, D, (0, 1, 64)) for H in (17, 32) for D in (16, 8)],
+    (3, 256, 24, 1, 64, (1, 65, 256)),
+    (3, 256, 24, 1, 256, (0, 64, 256)),
+    (3, 1024, 17, 1, 256, (1, 520, 1024)),
+    (2, 512, 20, 2, 128, (65, 512)),
 ]
 
 
@@ -263,11 +289,19 @@ def test_cuda_decode_attention_routes_match_plain(cuda, B, S, H, Hkv, D,
         lens = np.random.default_rng(S).integers(1, S + 1, (B,))
     lengths = torch.tensor(np.asarray(lens, np.int32)).to(cuda)
     want = ref.decode_attention_ref(q, kc, vc, lengths).cpu().float()
+    # a row of length 0 is 0, as from the TPU kernel (the plain version
+    # averages V there)
+    want[torch.as_tensor(np.asarray(lens)) == 0] = 0
     got = ops.decode_attention(q, kc, vc, lengths, block_kv=32)
     _close(got.cpu(), want.numpy(), dtype)
     rule = decode_mod.route(dtype, D, H // Hkv)
+    stats = KERNEL_STATS["decode_attention"]
     for r in _routes(rule):
+        before = stats.launches_by_route.get(r, 0)
         out = decode_mod.launch(q, kc, vc, lengths, force=r)
+        # the split kernel, and the combine past one split
+        assert stats.launches_by_route[r] - before == \
+            (2 if decode_mod.num_splits(S) > 1 else 1)
         _close(out.cpu(), want.numpy(), dtype)
         if r == rule:
             assert torch.equal(out, decode_mod.launch(q, kc, vc, lengths))
@@ -624,3 +658,4 @@ def test_cuda_shard_hints_are_exact_on_a_one_rank_mesh(nccl_world, cuda):
         assert isinstance(got, DTensor)
         assert torch.equal(got.full_tensor().view(torch.int32),
                            x.view(torch.int32))
+

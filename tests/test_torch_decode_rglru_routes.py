@@ -6,15 +6,20 @@
   rows.  A forced route must be one the kernels have.  CPU tensors take
   the plain versions and launch nothing.
 * Test-local PyTorch mirrors of the two new algorithms, run on the CPU:
-  the decode split kernel (one 64-row split per block, partials m / l /
-  acc with P rounded to bf16 before P·V) and its combine (weights
-  exp(m_s - max m) over the live splits), and the chunked RG-LRU scan
-  (chunk products and end states, the carry folded over chunks, the
-  rescan from each chunk's entering state, with separately rounded
-  multiplies and adds).  Each is held against the JAX package's Pallas
-  kernel (interpret mode, as ``tests/test_kernels.py`` runs it) and the
-  port's plain version, at bf16's tolerance (atol = rtol = 2e-2) for
-  decode and fp32's (atol = rtol = 2e-5) for the scan.
+  the decode split kernels (one 64-row split per block, one softmax over
+  it, partials m / l / acc, with P rounded to bf16 before P·V on the
+  tensor cores) and their combine (weights exp(m_s - max m) over the
+  live splits), and the chunked RG-LRU scan (chunk products and end
+  states, the carry folded over chunks, the rescan from each chunk's
+  entering state, with separately rounded multiplies and adds).  Each is
+  held against the JAX package's Pallas kernel (interpret mode, as
+  ``tests/test_kernels.py`` runs it) and the port's plain version, at
+  bf16's tolerance (atol = rtol = 2e-2) for the bf16 decode and fp32's
+  (atol = rtol = 2e-5) for the fp32 decode at lm-tiny's shapes and for
+  the scan.
+* The decode wrapper's contract with the C entry: the shared memory of
+  the route it takes at the tensors' dtype, a workspace only past one
+  split, and one launch a call (two with the combine).
 
 The kernels themselves run only on a card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
@@ -140,14 +145,15 @@ def test_cpu_tensors_take_the_plain_route_at_new_route_shapes():
 # decode: a mirror of the tensor-core split kernel and the combine
 # --------------------------------------------------------------------- #
 def decode_split_mirror(q, kc, vc, lengths, split=decode_mod.SPLIT_ROWS):
-    """The split kernel and combine on bf16 tensors, in fp32 on the CPU.
+    """The split kernels and combine, in fp32 on the CPU.
 
     Per (row, KV head): each live split (start < length) scores its 64
-    rows with the group's heads (bf16 operands, fp32 sums), masks rows
-    at or past the length with the finite -0.7·FLT_MAX, keeps m = its max,
-    p = exp(s - m), l = sum p, and acc = bf16(p) @ V; the combine weighs
-    each split by exp(m_s - max m), sums l and acc, and divides (l at
-    least 1e-30).  A row with no live split is 0.
+    rows with the group's heads (fp32 sums), masks rows at or past the
+    length with the finite -0.7·FLT_MAX, keeps m = its max, p = exp(s -
+    m), l = sum p, and acc = p @ V, with p rounded to bf16 first for bf16
+    tensors (the tensor-core kernel's P operand); the combine weighs each
+    split by exp(m_s - max m), sums l and acc, and divides (l at least
+    1e-30).  A row with no live split is 0.
     """
     B, _, H, D = q.shape
     S, Hkv = kc.shape[1], kc.shape[2]
@@ -172,7 +178,7 @@ def decode_split_mirror(q, kc, vc, lengths, split=decode_mod.SPLIT_ROWS):
                 p = torch.exp(s - m[:, None])
                 ls.append(p.sum(-1))
                 ms.append(m)
-                accs.append(p[:, :hi - lo].bfloat16().float() @ v)
+                accs.append(p[:, :hi - lo].to(q.dtype).float() @ v)
             if not ms:
                 continue
             m = torch.stack(ms)                          # (n_live, rep)
@@ -180,7 +186,7 @@ def decode_split_mirror(q, kc, vc, lengths, split=decode_mod.SPLIT_ROWS):
             l_tot = (torch.stack(ls) * w).sum(0).clamp_min(1e-30)
             acc = (torch.stack(accs) * w[..., None]).sum(0)
             out[b, hk * rep:(hk + 1) * rep] = acc / l_tot[:, None]
-    return out.bfloat16()[:, None]
+    return out.to(q.dtype)[:, None]
 
 
 def _decode_inputs(seed, B, S, H, Hkv, D):
@@ -213,6 +219,112 @@ def test_decode_split_mirror_matches_pallas_and_plain(B, S, H, Hkv, D, lens):
         block_kv=min(512, S))
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                **BF16_TOL)
+
+
+LM_TINY_MIRROR_CASES = [
+    # lm-tiny's decode on the CUDA-core route: fp32, 2 heads on 1, a
+    # 64-slot cache (one split), head dim 16 and its rungs' 8
+    (8, 64, 2, 1, 16, (64, 17, 40, 1, 64, 63, 24, 33)),
+    (4, 64, 2, 1, 8, (64, 17, 1, 50)),
+    # past one split: the combine; a group of 32 (the route's row blocks)
+    (2, 256, 2, 1, 16, (65, 256)),
+    (2, 256, 32, 1, 64, (130, 256)),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens", LM_TINY_MIRROR_CASES)
+def test_decode_split_mirror_fp32_matches_pallas_and_plain(B, S, H, Hkv, D,
+                                                           lens):
+    """The split and combine algebra of the CUDA-core route in fp32 (one
+    softmax per 64-row split, no rounding of P) against the JAX package's
+    Pallas kernel and the plain version, at fp32's tolerance."""
+    q, kc, vc = _decode_inputs(B * 5 + S + H, B, S, H, Hkv, D)
+    lengths = np.asarray(lens, np.int32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, kc, vc))
+    got = decode_split_mirror(tq, tk, tv, torch.from_numpy(lengths))
+    assert got.dtype == torch.float32
+    plain = ref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lengths))
+    np.testing.assert_allclose(_np(got), _np(plain), **FP32_TOL)
+    want = jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(vc), jnp.asarray(lengths),
+                                 block_kv=min(64, S))
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **FP32_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens", [
+    (3, 64, 2, 1, 16, (0, 1, 64)),           # lm-tiny's shape
+    (3, 256, 4, 1, 64, (0, 65, 256)),        # past one split
+])
+def test_decode_rows_of_length_zero_are_zero(B, S, H, Hkv, D, lens):
+    """A row with no valid position is 0 from the JAX package's Pallas
+    kernel and from the split algebra of the card's kernels; the plain
+    versions average V there instead, so the card's checks hold such
+    rows to 0.  The other rows agree at fp32's tolerance."""
+    q, kc, vc = _decode_inputs(B * 3 + S + H, B, S, H, Hkv, D)
+    lengths = np.asarray(lens, np.int32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, kc, vc))
+    got = _np(decode_split_mirror(tq, tk, tv, torch.from_numpy(lengths)))
+    want = np.asarray(jops.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lengths), block_kv=min(64, S)), np.float32)
+    plain = _np(ref.decode_attention_ref(tq, tk, tv,
+                                         torch.from_numpy(lengths)))
+    empty = lengths == 0
+    assert not got[empty].any() and not want[empty].any()
+    assert np.abs(plain[empty]).max() > 0.01
+    np.testing.assert_allclose(got, want, **FP32_TOL)
+    np.testing.assert_allclose(got[~empty], plain[~empty], **FP32_TOL)
+
+
+class _FakeDecodeLib:
+    """Stands in for the built library: records the C entry's arguments."""
+
+    def __init__(self):
+        self.smem_args, self.calls = [], []
+
+    def decode_attention_smem_bytes(self, *args):
+        self.smem_args.append(args)
+        return 0
+
+    def decode_attention_fwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,S,H,D,taken,kernels", [
+    ("float32", 64, 2, 16, "cuda_core", 1),      # lm-tiny: one split
+    ("float32", 1024, 4, 256, "cuda_core", 2),   # split + combine
+    ("bfloat16", 1024, 4, 256, "tensor_core", 2),
+    ("bfloat16", 128, 32, 64, "cuda_core", 2),   # a group above 16
+])
+def test_decode_wrapper_sizes_each_route_by_dtype(monkeypatch, dtype, S, H,
+                                                  D, taken, kernels):
+    """The wrapper asks the library for the shared memory of the route it
+    takes at the tensors' dtype, hands it a workspace only past one split,
+    and counts the split kernel (and the combine) under that route."""
+    lib = _FakeDecodeLib()
+
+    class _Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    decode_mod._smem_bytes.cache_clear()
+    B, Hkv = 2, 1
+    q = torch.zeros((B, 1, H, D), dtype=getattr(torch, dtype))
+    kc = torch.zeros((B, S, Hkv, D), dtype=q.dtype)
+    stats = KERNEL_STATS["decode_attention"]
+    before = stats.launches_by_route.get(taken, 0)
+    assert decode_mod.route(dtype, D, H // Hkv) == taken
+    decode_mod.launch(q, kc, kc, torch.full((B,), S))
+    decode_mod._smem_bytes.cache_clear()
+    assert lib.smem_args == [(H // Hkv, D, build.DTYPE_CODES[dtype],
+                              build.ROUTE_CODES[taken])]
+    args = lib.calls[-1]
+    n_split = decode_mod.num_splits(S)
+    assert (args[5] is None) == (n_split == 1)
+    assert args[6:12] == (n_split, B, S, H, Hkv, D)
+    assert stats.launches_by_route[taken] - before == kernels
 
 
 def test_decode_split_mirror_gives_zero_for_an_empty_row():

@@ -305,6 +305,33 @@ def test_launcher_runs_lm_tiny_on_cpu(tmp_path, capsys):
     assert all(v == sc["offered_prompts"] for v in counts.values())
 
 
+def test_launcher_lm_mode_through_main_on_cpu(capsys):
+    """The launcher's LM mode as ``chip_smoke.py``'s launcher_lm phase
+    runs it (lm-tiny, steady-poisson, 4 units), here on the CPU, shorter
+    and at max batch 4: exit 0, every prompt and decode step completed
+    under both policies and both dispatches with TTFT and TPOT p50/p95,
+    and the attention wrappers took their plain versions."""
+    import json
+    argv = ["--execution", "real", "--real-model", "lm-tiny",
+            "--scenario", "steady-poisson", "--duration", "2",
+            "--units", "4", "--max-batch", "4", "--device", "cpu"]
+    before = {n: KERNEL_STATS[n].cpu_calls
+              for n in ("flash_attention", "decode_attention")}
+    assert tbench.main(argv) == 0
+    sc = json.loads(capsys.readouterr().out)["scenarios"]["steady-poisson"]
+    prompts, steps = sc["offered_prompts"], sc["decode_steps"]
+    assert prompts > 0 and steps == 8
+    assert {k.split("+")[0] for k in sc["policies"]} == {"static", "packrat"}
+    for key in sc["policies"]:
+        rep = sc[key]
+        assert rep["phases"][PHASE_PREFILL]["completed"] == prompts
+        assert rep["phases"][PHASE_DECODE]["completed"] == prompts * steps
+        assert rep["incomplete"] == 0
+        for metric in ("ttft_ms", "tpot_ms"):
+            assert all(rep[metric][q] > 0 for q in ("p50", "p95"))
+    assert all(KERNEL_STATS[n].cpu_calls > before[n] for n in before)
+
+
 def test_engine_serves_reduced_deepseek_on_cpu():
     """deepseek-v2-236b's MLA/MoE stack behind the engine (stacked
     layout, as the full config): prefill + decode through the latent
