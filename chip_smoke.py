@@ -72,9 +72,14 @@ non-zero:
    host's cadence, which ``host_ms`` reports beside it.  The same timing
    of an empty kernel (``torch.cuda._sleep(0)``) is the per-launch floor
    of ``ms``; at attn-tiny's shapes each route's kernel duration from
-   ``torch.profiler`` is printed beside its ``ms``.  The blocks a SM
-   that the footprint of the SSD's CUDA-core chunk scan allows (the
-   occupancy calculator) are printed, and must be two.
+   ``torch.profiler`` is printed beside its ``ms``, and so is each
+   tensor-core route's at the serving shapes.  For each SSD route at the
+   serving shapes the profiler's kernel records per call must equal the
+   launches the wrapper counted, and ``KERNELS_PER_CALL`` (three passes
+   on either route).  The bf16 SSD also runs at 16 chunks over 6144
+   blocks.  The blocks a SM that the footprint of the SSD's
+   CUDA-core chunk scan allows (the occupancy calculator) are printed,
+   and must be two.
 3. **model** — per path, one prompt and 8 decode steps through the
    kernels against the same weights through the plain path: gemma3-1b
    1024 tokens (past its 512-token window, so the ring cache rolls),
@@ -156,7 +161,9 @@ non-zero:
    (the tensor cores for the attention kernels and ``ssd_scan``, the
    chunked RG-LRU scan), no other kernel may launch, and no wrapper may
    take its CPU route.  The launch counts (by route) are reset just
-   before each path and read just after it.
+   before each path and read just after it; so are the SSD's calls by
+   shape, and after the last path the SSD is timed at each shape the
+   paths called it with (the ``ssd_scan`` row's ``calls_by_shape``).
 6. **micro** — per micro model: the card's step against the CPU plain
    step on the same weights (fp32, 2e-5), a trace of one runner step at
    b = 1 and 256 (attn-tiny also at its rungs S = 8 and 4), then the
@@ -421,16 +428,24 @@ def main(argv=None) -> int:
 
     launches = {n: {} for n in KERNEL_STATS}
     by_path = {n: {} for n in KERNEL_STATS}
+    ssd_calls = {}
     for path, needed in PATHS.items():
         _reset_counts()
         serve_rep = phase_serve(torch, path)
         counts, cpu_calls = _counts()
+        shapes = dict(KERNEL_STATS["ssd_scan"].calls_by_shape)
         _free(torch)                  # the engine went with phase_serve
         serve_rep["launches_by_route"] = counts
         serve_rep["cpu_calls"] = cpu_calls
+        serve_rep["ssd_calls_by_shape"] = [[*k, n] for k, n in
+                                           shapes.items()]
         emit({"phase": "serve", **serve_rep})
         _check_launches(path, counts, cpu_calls, needed)
         _tally(counts, path, launches, by_path)
+        for k, n in shapes.items():
+            ssd_calls[k] = ssd_calls.get(k, 0) + n
+    ssd_shapes = ssd_calls_by_shape(torch, ssd_calls)
+    emit({"phase": "ssd_shapes", "rows": ssd_shapes})
     for name in MICRO_PATHS:
         micro_rep = phase_micro(torch, name)
         _tally(micro_rep["launches_by_route"], name, launches, by_path)
@@ -451,7 +466,11 @@ def main(argv=None) -> int:
         timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: no output", flush=True)
-    emit({"kernels": kernel_rows(kernels_rep, launches, by_path)})
+    rows = kernel_rows(kernels_rep, launches, by_path)
+    for row in rows:
+        if row["name"] == "ssd_scan":
+            row["calls_by_shape"] = ssd_shapes
+    emit({"kernels": rows})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -595,22 +614,85 @@ def _profile(torch, fn, tries: int = 3):
     return prof
 
 
-def kernel_breakdown(torch, fn, iters: int = 20) -> dict:
-    """Device ms per call of each CUDA kernel ``fn`` launches, from
-    ``torch.profiler`` over ``iters`` calls."""
+def _kernel_records(torch, fn, stats=None, iters: int = 20) -> dict:
+    """``fn`` ``iters`` times under ``torch.profiler``: the device ms per
+    call of each kernel, the device kernel records per call (copies and
+    fills apart) and, given a wrapper's ``stats``, the launches it
+    counted meanwhile."""
     import collections
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    counted = []
 
     def calls():
+        before = stats.launches if stats else 0
         for _ in range(iters):
             fn()
+        counted.append((stats.launches if stats else 0) - before)
     by_name = collections.Counter()
+    records = 0
     for e in _device_events(_profile(torch, calls)):
         name = e.name.replace("(anonymous namespace)::", "")
         by_name[name.split("(")[0][:60]] += e.device_time_total / 1e3
-    return {name: ms / iters for name, ms in by_name.most_common()}
+        records += not e.name.startswith(("Memcpy", "Memset"))
+    return {"records_per_call": records / iters,
+            "launches_per_call": counted[-1] / iters,
+            "kernels_ms": {n: ms / iters for n, ms in by_name.most_common()}}
+
+
+def _ssd_bound(dt: str, B, S, H, G, P, N, Q):
+    """(least ms, what bounds it) of one SSD call at this shape."""
+    elem = 2 if dt == "bfloat16" else 4
+    nbytes = (elem * (2 * B * S * H * P + 2 * B * S * G * N)
+              + 4 * (B * S * H + H + B * H * P * N))
+    # the work the function needs: per chunk the causal triangle of the
+    # scores C B^T (Q(Q+1)/2 dot products of N) and of M x (of Q(Q+1)/2
+    # columns of P), the chunk's state (x o w)^T B (Q N P), and C h_in^T
+    # (Q N P) on every chunk but the first, whose h_in is zero
+    chunks = B * H * (S // Q)
+    tri = Q * (Q + 1) / 2
+    scores = 2.0 * tri * N * chunks
+    rest = 2.0 * (tri * P * chunks + Q * N * P * chunks
+                  + Q * N * P * (chunks - B * H))
+    flops = scores + rest
+    if dt == "float32":
+        # the CUDA-core passes form the scores in fp64 on the FP64 tensor
+        # cores, the rest in fp32
+        flops = {"float64_tc": scores, "float32": rest}
+    return _bound(nbytes, flops, dt)
+
+
+def ssd_calls_by_shape(torch, calls) -> list:
+    """The SSD timed at each shape the serving paths called it with
+    (``calls``: the wrapper's shape key -> calls), on fresh inputs
+    through the wrapper, so on the route each shape takes: device ms,
+    host ms, the bound, and the calls times the excess over the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    rows = []
+    for (dt, B, S, H, G, P, N, Q), n in sorted(calls.items()):
+        dtype = getattr(torch, dt)
+        args = (randn((B, S, H, P), dtype),
+                F.softplus(randn((B, S, H), torch.float32)),
+                torch.log(torch.linspace(1.0, 4.0, H, device=dev)),
+                randn((B, S, G, N), dtype), randn((B, S, G, N), dtype))
+        t = time_ms(torch, lambda: ops.ssd_scan(*args, chunk=Q), iters=50)
+        bound_ms, bound_by = _ssd_bound(dt, B, S, H, G, P, N, Q)
+        rows.append({"shape": {"B": B, "S": S, "H": H, "P": P, "G": G,
+                               "N": N, "chunk": Q},
+                     "dtype": dt, "route": ssd_mod.route(dt, P, N, Q),
+                     "calls": n, "ms": t["ms"], "host_ms": t["host_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "calls_x_excess_ms": n * (t["ms"] - bound_ms)})
+        del args
+    return rows
 
 
 def _bound(bytes_moved: float, flops, dtype_name: str):
@@ -711,7 +793,7 @@ def _reset_counts() -> None:
 # --------------------------------------------------------------------- #
 def phase_kernels(torch):
     import torch.nn.functional as F
-    from repro_torch.kernels import build
+    from repro_torch.kernels import KERNEL_STATS, build
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops, ref
@@ -768,6 +850,12 @@ def phase_kernels(torch):
             flash.append((dt, B, 512, 16, 1, 256, 2048, 512))
             for H, Hkv in D64_SERVING:
                 flash.append((dt, B, 512, H, Hkv, 64, 0, 512))
+        if dt == "bfloat16":
+            # the tensor-core kernel's other head dims, at GQA groups 7
+            # (windowed) and 16 over a partial tile
+            for D in (16, 32, 128):
+                flash.append((dt, 2, 100, 14, 2, D, 48, 32))
+                flash.append((dt, 2, 100, 16, 1, D, 0, 32))
     # attn-tiny (the micro path): fp32, 2 heads of 16, its rungs' S = 16,
     # 8 and 4 (on the card unpadded: the short route), at B = 1, 16, 256
     heads, hd = ATTN_TINY_HD
@@ -850,13 +938,13 @@ def phase_kernels(torch):
                                             window=window, force=r)
                 routes[r] = {"max_abs_err": errs[r],
                              **time_ms(torch, call, iters=iters)}
-                if tiny:
-                    routes[r]["device_kernels_ms"] = kernel_breakdown(
-                        torch, call, iters=iters)
+                if tiny or r == "tensor_core":
+                    routes[r]["device_kernels_ms"] = _kernel_records(
+                        torch, call, iters=iters)["kernels_ms"]
             extra = {}
             if tiny:
-                extra["wrapper_kernels_ms"] = kernel_breakdown(
-                    torch, wrapper_call, iters=iters)
+                extra["wrapper_kernels_ms"] = _kernel_records(
+                    torch, wrapper_call, iters=iters)["kernels_ms"]
             if tiny and S < max(ATTN_TINY_SEQS):
                 # what the wrapper did before it skipped the padding:
                 # zero-pad q/k/v to 16, launch by shape, slice
@@ -871,7 +959,8 @@ def phase_kernels(torch):
                 "max_abs_err": err, "ms": wrapper["ms"],
                 "host_ms": wrapper["host_ms"], "covered": wrapper["covered"],
                 "routes": routes, **extra,
-                "library_kernels_ms": kernel_breakdown(torch, lib),
+                "library_kernels_ms": _kernel_records(
+                    torch, lib)["kernels_ms"],
                 "plain_ms": plain["ms"], "library_ms": library["ms"],
                 "library_host_ms": library["host_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by})
@@ -984,9 +1073,9 @@ def phase_kernels(torch):
                 "routes": {r: {"max_abs_err": errs[r], **time_ms(
                     torch, lambda r=r: decode_mod.launch(
                         q, kc, vc, lengths, force=r), iters=50),
-                    "device_kernels_ms": kernel_breakdown(
+                    "device_kernels_ms": _kernel_records(
                         torch, lambda r=r: decode_mod.launch(
-                            q, kc, vc, lengths, force=r))}
+                            q, kc, vc, lengths, force=r))["kernels_ms"]}
                     for r in routes_for(rule)},
                 "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(
                     q, kc, vc, lengths), iters=50)["ms"],
@@ -997,9 +1086,15 @@ def phase_kernels(torch):
     # SSD: tests/test_kernels.py grid, a grouped case with P = 16 (the
     # tensor cores take it), one chunk (S = chunk), a chunk of 40 (not a
     # multiple of 16: the CUDA-core scan pads its 16-row pieces) with P =
-    # 12 and N = 20, and mamba2-130m's serving shape at B = 1, 4; the
-    # plain version is the sequential recurrence, y and the final state
-    # (evaluated in fp64 for fp32)
+    # 12 and N = 20, and mamba2-130m's serving shape at B = 1, 2, 4 (the
+    # batches its prefill runner rounds to); in bf16 also 16 chunks over
+    # 6144 blocks (far more than the card holds at once), a chunk of 128,
+    # P = 80, and N = 256 at a chunk of 128 and N = 272 (the largest
+    # blocks the tensor cores take); the plain version is the sequential
+    # recurrence, y and the final state (evaluated in fp64 for fp32)
+    ssd_wide = ((8, 1024, 48, 64, 1, 128, 64), (2, 2048, 24, 64, 2, 64, 128),
+                (2, 256, 4, 80, 1, 64, 64), (1, 256, 4, 64, 1, 256, 128),
+                (1, 256, 4, 64, 1, 272, 64))
     for dt in TOL:
         for B, S, H, P, G, N, Q in ((1, 64, 2, 8, 1, 16, 16),
                                     (2, 128, 4, 16, 1, 32, 32),
@@ -1008,7 +1103,10 @@ def phase_kernels(torch):
                                     (2, 64, 4, 16, 1, 32, 64),
                                     (2, 120, 4, 12, 2, 20, 40),
                                     (1, 512, 24, 64, 1, 128, 64),
-                                    (4, 512, 24, 64, 1, 128, 64)):
+                                    (2, 512, 24, 64, 1, 128, 64),
+                                    (4, 512, 24, 64, 1, 128, 64)) + (
+                                        ssd_wide if dt == "bfloat16"
+                                        else ()):
             dtype = getattr(torch, dt)
             x = randn((B, S, H, P), dtype)
             dts = F.softplus(randn((B, S, H), torch.float32))
@@ -1036,12 +1134,17 @@ def phase_kernels(torch):
             y, h = ops.ssd_scan(*args, chunk=Q)
             torch.cuda.synchronize()
             rule = ssd_mod.route(dt, P, N, Q)
+            # the CUDA cores take a shape whose blocks fit an SM
+            ssd_routes = tuple(
+                r for r in routes_for(rule) if r != "cuda_core"
+                or build.library("ssd_scan").ssd_scan_smem_bytes(P, N, Q)
+                <= build.MAX_SMEM_BYTES)
             err = check("ssd_scan", shape, dt, y, want_y, output="y",
                         route=rule, via="ops.ssd_scan")
             err_h = check("ssd_scan", shape, dt, h, want_h, output="state",
                           route=rule, via="ops.ssd_scan")
             forced, errs = {}, {}
-            for r in routes_for(rule):
+            for r in ssd_routes:
                 forced[r] = ssd_mod.launch(*args, chunk=Q, force=r)
                 torch.cuda.synchronize()
                 errs[r] = {
@@ -1052,27 +1155,24 @@ def phase_kernels(torch):
             same_route("ssd_scan", shape, dt, rule,
                        ssd_mod.launch(*args, chunk=Q), forced[rule])
             if S == 512:
-                elem = x.element_size()
-                nbytes = (elem * (2 * B * S * H * P + 2 * B * S * G * N)
-                          + 4 * (B * S * H + H + B * H * P * N))
-                # the work the function needs: per chunk the causal
-                # triangle of the scores C B^T (Q(Q+1)/2 dot products of
-                # N) and of M x (of Q(Q+1)/2 columns of P), the chunk's
-                # state (x o w)^T B (Q N P), and C h_in^T (Q N P) on
-                # every chunk but the first, whose h_in is zero
-                chunks = B * H * (S // Q)
-                tri = Q * (Q + 1) / 2
-                scores = 2.0 * tri * N * chunks
-                rest = 2.0 * (tri * P * chunks + Q * N * P * chunks
-                              + Q * N * P * (chunks - B * H))
-                flops = scores + rest
-                if dt == "float32":
-                    # the CUDA-core passes form the scores in fp64 on the
-                    # FP64 tensor cores, the rest in fp32
-                    flops = {"float64_tc": scores, "float32": rest}
-                bound_ms, bound_by = _bound(nbytes, flops, dt)
+                bound_ms, bound_by = _ssd_bound(dt, B, S, H, G, P, N, Q)
                 wrapper = time_ms(torch, lambda: ops.ssd_scan(
                     *args, chunk=Q), iters=50)
+                profiled = {}
+                for r in ssd_routes:
+                    profiled[r] = _kernel_records(
+                        torch, lambda r=r: ssd_mod.launch(*args, chunk=Q,
+                                                          force=r),
+                        KERNEL_STATS["ssd_scan"])
+                    cases.append({
+                        "kernel": "ssd_scan", "shape": shape, "dtype": dt,
+                        "route": r,
+                        "check": "profiler kernel records == launches "
+                                 "counted == KERNELS_PER_CALL",
+                        **profiled[r],
+                        "ok": profiled[r]["records_per_call"]
+                        == profiled[r]["launches_per_call"]
+                        == ssd_mod.KERNELS_PER_CALL})
                 timings["ssd_scan"].append({
                     "shape": shape, "dtype": dt, "route": rule,
                     "max_abs_err": max(err, err_h), "max_abs_err_y": err,
@@ -1081,10 +1181,12 @@ def phase_kernels(torch):
                     "covered": wrapper["covered"],
                     "routes": {r: {"max_abs_err": errs[r], **time_ms(
                         torch, lambda r=r: ssd_mod.launch(
-                            *args, chunk=Q, force=r), iters=50)}
-                        for r in routes_for(rule)},
-                    "device_kernels_ms": kernel_breakdown(
-                        torch, lambda: ops.ssd_scan(*args, chunk=Q)),
+                            *args, chunk=Q, force=r), iters=50),
+                        "device_kernels_ms": profiled[r]["kernels_ms"]}
+                        for r in ssd_routes},
+                    "device_kernels_ms": _kernel_records(
+                        torch, lambda: ops.ssd_scan(
+                            *args, chunk=Q))["kernels_ms"],
                     "plain_ms": time_ms(torch, lambda: ref.ssd_scan_ref(
                         *args), iters=3, warmup=1)["ms"],
                     "library_ms": None,
@@ -1132,8 +1234,9 @@ def phase_kernels(torch):
     # the per-launch floor of ``ms``: an empty kernel timed the same way
     launch_floor = {**time_ms(torch, lambda: torch.cuda._sleep(0),
                               iters=100),
-                    "device_kernels_ms": kernel_breakdown(
-                        torch, lambda: torch.cuda._sleep(0), iters=100)}
+                    "device_kernels_ms": _kernel_records(
+                        torch, lambda: torch.cuda._sleep(0),
+                        iters=100)["kernels_ms"]}
 
     # blocks a SM the footprint of the SSD's CUDA-core chunk scan allows
     # at mamba2-130m's widths (the occupancy calculator): it must hold two

@@ -1,14 +1,14 @@
 """Hand-written Hopper kernels for the serving hot spots, with plain versions.
 
 * flash_attention — prefill attention (tiled online softmax), CUDA:
-  tensor cores (mma.sync) for bf16, a warp per (batch, head) for fp32
+  tensor cores (wgmma fed by TMA) for bf16, a warp per (batch, head) for fp32
   with at most 16 rows and keys (the short route), CUDA cores for the
   rest of fp32 and head dim 8
 * decode_attention — flash-decode against a KV cache in 64-row splits
   and a combine, CUDA: tensor cores (mma.sync) for bf16 with GQA groups
   up to 16, CUDA cores for fp32, head dim 8 and larger groups
 * ssd_scan — Mamba2 chunked SSD scan with its final state, CUDA: three
-  tensor-core passes for bf16, one CUDA-core kernel for fp32
+  tensor-core passes for bf16, three CUDA-core passes for fp32
 * rglru_scan — RG-LRU linear recurrence over time, CUDA: one chunked
   scan for every shape
 

@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the decode and SSD entries refuse its code)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-TENSOR_CORE_HEAD_DIMS = HEAD_DIMS[1:]   # mma.sync needs a depth of 16
+TENSOR_CORE_HEAD_DIMS = HEAD_DIMS[1:]   # mma needs a depth of 16
 # flash's short route: fp32, at most SHORT_MAX_SEQ query rows and keys
 SHORT_HEAD_DIMS = (8, 16, 32)
 SHORT_MAX_SEQ = 16
@@ -62,6 +62,9 @@ class KernelStats:
     (``"cuda_core"``, ``"tensor_core"`` or flash's ``"short"``;
     ``"chunked"`` for the RG-LRU scan, which has one); ``launches`` is
     their sum.
+    ``calls_by_shape`` counts the launching calls by the shape key a
+    wrapper passes (the SSD scan's dtype and dimensions), so a caller can
+    weigh per-shape kernel times by the mix a path really ran.
     ``cpu_calls`` counts calls that took the plain PyTorch version
     because the tensors lay on the CPU.  Updates are locked: serving
     runners call the wrappers from several threads.
@@ -69,6 +72,7 @@ class KernelStats:
 
     def __init__(self) -> None:
         self.launches_by_route: Dict[str, int] = {}
+        self.calls_by_shape: Dict[tuple, int] = {}
         self.cpu_calls = 0
         self._lock = threading.Lock()
 
@@ -76,10 +80,14 @@ class KernelStats:
     def launches(self) -> int:
         return sum(self.launches_by_route.values())
 
-    def launched(self, kernels: int = 1, route: str = "cuda_core") -> None:
+    def launched(self, kernels: int = 1, route: str = "cuda_core",
+                 shape: Optional[tuple] = None) -> None:
         with self._lock:
             self.launches_by_route[route] = \
                 self.launches_by_route.get(route, 0) + kernels
+            if shape is not None:
+                self.calls_by_shape[shape] = \
+                    self.calls_by_shape.get(shape, 0) + 1
 
     def cpu_call(self) -> None:
         with self._lock:
@@ -88,6 +96,7 @@ class KernelStats:
     def reset(self) -> None:
         with self._lock:
             self.launches_by_route = {}
+            self.calls_by_shape = {}
             self.cpu_calls = 0
 
 
@@ -232,5 +241,7 @@ def check(name: str, err: int) -> None:
         return
     if err == -1:
         raise ValueError(f"{name}: no CUDA kernel for this shape / dtype")
+    # other codes are cudaError_t values, or flash's -2 (a TMA tensor map
+    # cuTensorMapEncodeTiled refused); the library names each
     msg = library(name).kernel_error_string(err).decode()
     raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")

@@ -7,25 +7,25 @@
 // Layout: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), out (B, Sq, H, D), all
 // contiguous, fp32 or bf16; query head h reads KV head h / (H / Hkv).
 //
-// Design, both routes.  One block per (64-row Q tile, head, batch).  The
-// TPU kernel carries m/l/acc in VMEM scratch across a sequential KV grid
-// axis; here a loop inside the block walks the KV tiles instead, and it
-// visits only the tiles that the causal and window masks leave visible,
-// so masked work is skipped as on the TPU.  In the CUDA-core kernel K and
-// V tiles (32 rows) are staged through shared memory as fp32; each query
-// row is owned by 4 neighbouring lanes of one warp, which split the row's
-// 32 scores and its D output columns, so the row's softmax reductions are
-// two shuffles and the row's probabilities never leave the warp.  The
-// tensor-core kernel is described below.  Masking uses the finite constant
-// -0.7 * FLT_MAX of the TPU kernel: a row whose first visible tile is fully
-// masked for it accumulates exp(0) = 1 terms that the first real score
-// wipes out with alpha = exp(NEG_INF - m) = 0, where -inf would give NaN.
+// Design, the two tiled routes.  One block per (64-row Q tile, head,
+// batch).  The TPU kernel carries m/l/acc in VMEM scratch across a
+// sequential KV grid axis; here a loop inside the block walks the KV
+// tiles instead, and it visits only the tiles that the causal and window
+// masks leave visible, so masked work is skipped as on the TPU.  Masking
+// uses the finite constant -0.7 * FLT_MAX of the TPU kernel: a row whose
+// first visible tile is fully masked for it accumulates exp(0) = 1 terms
+// that the first real score wipes out with alpha = exp(NEG_INF - m) = 0,
+// where -inf would give NaN.
 //
 // What bounds it on an H100.  At the serving shapes (S = 512..1024,
 // D = 256, 4 query heads on 1 KV head) the card's own bound is a few
 // microseconds either way: 4 * B * H * D * S^2 / 2 flops against
 // 2 * B * S * (H + Hkv) * D elements moved, about 50 flops per bf16 byte,
 // below the ~295 at which the tensor cores rather than memory limit.
+// But one wave holds every block (128 at gemma3-1b B = 4), so a call
+// lasts as long as its heaviest block's chain of KV tiles: the last query
+// tile's 512 keys, ~31 MFLOP, ~4 us at one SM's share of the dense bf16
+// rate.  What counts is how close that chain runs to the SM's rate.
 //
 // Three routes, chosen by dtype and shape before the launch (never
 // after a failure): `flash_attention_fwd`'s `route` argument is 0 (by
@@ -33,40 +33,54 @@
 // it returns -1 where a forced route cannot take the shape.
 //
 // CUDA-core route (fp32 and head dim 8 beyond the short route's
-// limits): the fp32 kernel below.  It is
-// limited by issuing shared-memory loads, so the inner products read q,
-// k, v and p as 16-byte vectors (rows padded to keep them aligned and the
-// banks distinct) and each lane owns 4-column groups of the output.  At
+// limits): `flash_fwd_kernel`, K and V tiles (32 rows) staged through
+// shared memory as fp32; each query row is owned by 4 neighbouring lanes
+// of one warp, which split the row's 32 scores and its D output columns,
+// so the row's softmax reductions are two shuffles and the row's
+// probabilities never leave the warp.  It is limited by issuing
+// shared-memory loads, so the inner products read q, k, v and p as
+// 16-byte vectors (rows padded to keep them aligned and the banks
+// distinct) and each lane owns 4-column groups of the output.  At
 // D = 256 its 139 KB of shared memory allows one block per SM.  fp32
 // stays here because TF32 tensor cores (~1e-3) miss its 2e-5 tolerance;
 // head dim 8 because mma needs a depth of 16.
 //
-// Tensor-core route (bf16, D = 16..256): `flash_tc_kernel`.  The
-// CUDA-core kernel is bound by issue rate and latency, not by the card:
-// fp32 FMAs at 1/15 of the bf16 tensor rate, K/V staged as fp32 (twice
-// the shared-memory traffic) and tile loads that wait for compute.  At
-// the serving shapes one wave holds every block (128 at gemma3-1b B = 4),
-// so the time is one block's chain of KV tiles.  So: S = Q K^T and
-// O += P V by mma.sync m16n8k16 (bf16 in, fp32 accumulate) with operands
-// from ldmatrix (.trans for V); K and V stay bf16 in 32-row tiles, rows
-// padded by 16 bytes so ldmatrix's 8 row reads hit distinct banks.  A
-// block is two warp groups of 4 warps, each warp owning 16 query rows of
-// the 64-row Q tile (shared in shared memory); the groups take alternate
-// KV tiles, each through its own two-stage ring filled by 16-byte
-// cp.async copies (tile t+2 loads while tile t computes), which halves
-// the chain and puts two warps on each scheduler to hide the mma and
-// ldmatrix latency.  At the end group 1 hands its (m, l, O) fragments to
-// group 0 through the idle rings and group 0 merges the two online
-// softmaxes and writes O.  The online softmax runs on the fp32
-// accumulator fragment (row max and sum across the 4 lanes of a row by
-// two shuffles), in the log2 domain, and P goes to bf16 in registers as
-// the A operand of P V.  Under causal masking the grid's slowest axis
-// walks Q tiles heaviest first, so the long rows start in the first
-// wave; a warp skips a tile that is wholly masked for its rows, and only
-// tiles that cross the diagonal, the window edge or the end of the keys
-// apply the elementwise mask.  At D = 256 the O accumulator is 128 fp32
-// registers a thread; shared memory is 165 KB (Q tile + 2 groups x 2
-// stages x (K + V)), one block per SM.
+// Tensor-core route (bf16, D = 16..256): `flash_tc_kernel`, built from
+// Hopper's own parts (hopper.cuh) so the chain runs on the tensor cores
+// with nothing else in its way.  A block is two warpgroups that take
+// alternate KV tiles against the same 64-row Q tile (wgmma's M):
+//   * loads: one thread loads the Q tile once, and one thread of each
+//     warpgroup keeps that group's ring of three K/V stages full by TMA
+//     (4-d tensor maps, one box of 64 KV rows, 32 at D = 256, per 64
+//     columns, 128/64/32-byte swizzled as wgmma reads them; a full
+//     mbarrier a stage), refilling a stage once every warp of the group
+//     is done with it, so no copy costs the group more than a few
+//     instructions.  There is no producer warpgroup: ptxas gives every
+//     thread of a block the launch bound's share of registers (168 with a
+//     third warpgroup) whatever setmaxnreg grants later, and at D = 256
+//     it then spilled and serialised the products; with two warpgroups a
+//     thread may hold up to 255, and ptxas uses 182 at D = 256 (O alone
+//     is 128 a thread), 138 at D = 128 and 82-109 up to D = 64, with no
+//     spill at any head dim;
+//   * products: S = Q K^T by wgmma with both operands K-major in shared
+//     memory, O += P V by wgmma with P from registers (the accumulator
+//     rounded to bf16 in pairs) and V MN-major.  Step n issues S_n and
+//     P_{n-1} V_{n-1} together, runs the softmax of S_n while the second
+//     product runs, and rescales O once neither is in flight (so ptxas
+//     never serialises the products); the other group's products fill
+//     the tensor cores during this one's softmax.  At the end group 1
+//     hands its (m, l, O) to group 0 through the idle rings and group 0
+//     merges the two online softmaxes and writes O.
+// The numbers are those of the mma.sync kernel this one replaced: the
+// log2-domain softmax on the fp32 accumulator (row max and sum across
+// the 4 lanes of a row by two shuffles), P rounded to bf16, the mask
+// applied only on tiles across an edge of a warp's 16 rows.  Rows past
+// Sq or Sk arrive as zeros (TMA's out-of-bounds fill) and are masked by
+// position.  Under causal masking the grid walks query tiles heaviest
+// first.  Shared memory: the Q tile and the two rings (225 KB at
+// D = 256); up to D = 64 two blocks share an SM.  The tensor maps are
+// encoded on the host for each call (they hold the pointers), the
+// kernel's attributes set once per device.
 //
 // Short route (fp32, Sq and Sk <= 16, D = 8, 16 or 32): `flash_short_kernel`,
 // attn-tiny's path (2 heads of 16 over 16, 8 or 4 positions, B up to
@@ -99,9 +113,12 @@
 // arithmetic, measured slower at every attn-tiny shape: the time above
 // an empty kernel's is the memory round trip, not the FMAs.
 
+#include <atomic>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -328,234 +345,293 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------
-// tensor-core route (bf16)
+// tensor-core route (bf16): wgmma + TMA, two warpgroups
 // ---------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-constexpr int kTcBQ = 64;                // query rows per block
-constexpr int kTcBKV = 32;               // KV rows per tile
-constexpr int kTcGroupThreads = 128;     // a warp group: 4 warps x 16 rows
-constexpr int kTcThreads = 2 * kTcGroupThreads;
+constexpr int kTcBQ = 64;                // query rows per block: wgmma's M
+constexpr int kTcThreads = 2 * 128;      // two consumer warpgroups
+constexpr int kTcStages = 3;             // K/V stages of each warpgroup
+constexpr int kTensorMapError = -2;      // cuTensorMapEncodeTiled refused
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-constexpr size_t tc_kv_bytes() {
-  // per warp group two stages of K and V
-  return sizeof(bf16) * (size_t)2 * 2 * 2 * kTcBKV * (D + 8);
-}
+struct TcTile {
+  // KV rows a tile: 64, and 32 at D = 256 (six stages of 64 rows would
+  // not fit the SM's shared memory)
+  static constexpr int BKV = D == 256 ? 32 : 64;
+  static constexpr int W = D < 64 ? D : 64;       // columns of a block
+  static constexpr int NB = D / W;                // column blocks a row
+  static constexpr int SW = 2 * W;                // swizzle bytes
+  static constexpr int Q_BYTES = kTcBQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;    // one K or V tile
+  static constexpr int RING = 2 * kTcStages * 2 * KV_BYTES;
+  // group 1's O fragments, then its m and l, a float4 a thread each
+  static constexpr int MERGE = 16 * 128 * (D / 8 + 1);
+  static_assert(MERGE <= RING, "the merge reuses the ring");
+  // alignment slack, Q, the two rings, then the barriers: Q's and each
+  // stage's
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + RING + 8 * (1 + 2 * kTcStages);
+  // blocks a SM: two up to D = 64 (at most 128 registers a thread), one
+  // above (up to 255; O alone is 128 a thread at D = 256)
+  static constexpr int BLOCKS = D <= 64 ? 2 : 1;
+};
 
-template <int D>
-constexpr size_t tc_merge_bytes() {
-  // group 1's O fragments, then its m and l, one float4 a lane each
-  return 16 * (size_t)4 * 32 * (D / 8 + 1);
-}
-
-template <int D>
-constexpr size_t tc_smem_bytes() {
-  // the Q tile, then the K/V rings, which the merge reuses at the end
-  return sizeof(bf16) * (size_t)kTcBQ * (D + 8) +
-         (tc_kv_bytes<D>() > tc_merge_bytes<D>() ? tc_kv_bytes<D>()
-                                                 : tc_merge_bytes<D>());
-}
-
-// Rows [row0, row0 + ROWS) of a matrix whose row r starts at src + r *
-// stride into a ROWS x (D + 8) tile, by NT threads; rows >= nrows are
-// zero-filled.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src,
-                                             int row0, int nrows,
-                                             size_t stride, int tid) {
-  constexpr int kChunks = D / 8;          // 16-byte chunks per row
-  constexpr int kTotal = ROWS * kChunks;
+// Online softmax of one tile's scores in place: scale into the log2
+// domain, mask (only on a tile on an edge of the warp's rows), update the
+// running max m and this lane's share of the row sum l, and leave
+// P = exp2(s - m) in s; returns each row's rescale factor in alpha.
+// Rows: a (registers 4j, 4j + 1) and a + 8 (4j + 2, 4j + 3).
+template <int BKV>
+__device__ __forceinline__ void tc_softmax(float (&s)[BKV / 2], float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2],
+                                           int k_lo, int r0, int row_a, int t,
+                                           int Sk, int causal, int window,
+                                           float scale_log2) {
+  const bool edge = (causal && k_lo + BKV - 1 > r0) || k_lo + BKV > Sk ||
+                    (window > 0 && k_lo + window <= r0 + 15);
 #pragma unroll
-  for (int it = 0; it < (kTotal + NT - 1) / NT; ++it) {
-    const int i = tid + it * NT;
-    if (kTotal % NT != 0 && i >= kTotal) break;
-    const int r = i / kChunks, c = i % kChunks;
-    const int s = row0 + r;
-    const bool ok = s < nrows;
-    mma::cp_async16(dst + r * (D + 8) + c * 8,
-                    src + (size_t)(ok ? s : 0) * stride + c * 8,
-                    ok ? 16 : 0);
+  for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * scale_log2;
+      if (edge) {
+        const int qpos = row_a + (e >= 2 ? 8 : 0);
+        const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
+        bool keep = kpos < Sk;
+        if (causal) keep = keep && kpos <= qpos;
+        if (window > 0) keep = keep && kpos > qpos - window;
+        if (!keep) x = kNegInf;
+      }
+      s[4 * j + e] = x;
+    }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = exp2f(s[4 * j + e] - m[e / 2]);
+      rs[e / 2] += s[4 * j + e];
+    }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+}
+
+// P (fp32, in the accumulator's layout) as the bf16 A fragments of P V.
+template <int BKV>
+__device__ __forceinline__ void tc_pack_p(const float (&s)[BKV / 2],
+                                          uint32_t (&pa)[BKV / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    pa[j / 2][(j % 2) * 2] = mma::pack_bf16(s[4 * j], s[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = mma::pack_bf16(s[4 * j + 2], s[4 * j + 3]);
   }
 }
 
-// Barrier of one warp group (ids 1 and 2; 0 is __syncthreads).
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + group),
-               "n"(kTcGroupThreads) : "memory");
+// S (64 x BKV) = Q K^T for one KV tile, both operands K-major in shared
+// memory, D / 16 steps.
+template <int D>
+__device__ __forceinline__ void tc_scores(float (&s)[TcTile<D>::BKV / 2],
+                                          uint32_t q_addr, uint32_t k_addr) {
+  using T = TcTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t blk = kk * 16 / T::W, off = (kk * 16 % T::W) * 2;
+    hopper::wgmma_ss<T::BKV, 0, 0>(
+        s, hopper::desc(q_addr + blk * kTcBQ * T::SW + off, 16, 8 * T::SW, T::SW),
+        hopper::desc(k_addr + blk * T::BKV * T::SW + off, 16, 8 * T::SW, T::SW),
+        kk > 0);
+  }
+}
+
+// O (64 x D) += P V for one KV tile: P from registers (BKV / 16 steps of
+// 16 keys), V MN-major in shared memory, one wgmma per W columns of O.
+template <int D>
+__device__ __forceinline__ void tc_pv(
+    float (&acc)[TcTile<D>::NB][TcTile<D>::W / 2],
+    const uint32_t (&pa)[TcTile<D>::BKV / 16][4], uint32_t v_addr) {
+  using T = TcTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < T::BKV / 16; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < T::NB; ++nb)
+      hopper::wgmma_rs<T::W, 1>(
+          acc[nb], pa[kk],
+          hopper::desc(v_addr + nb * T::BKV * T::SW + kk * 16 * T::SW,
+                       T::BKV * T::SW, 8 * T::SW, T::SW),
+          1);
+}
+
+// Barrier of the two warpgroups (id 1), of one (ids 2, 3); 0 is
+// __syncthreads.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + grp) : "memory");
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
-flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                int Sk, int H, int Hkv, int causal, int window,
-                float scale_log2) {
-  constexpr int RS = D + 8;               // shared row stride (elements)
-  constexpr int NT = kTcBKV / 8;          // score n-tiles per warp
-  constexpr int DT = D / 8;               // output n-tiles per warp
-  constexpr int TILE = kTcBKV * RS;       // elements of one K or V tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* kv0 = qs + kTcBQ * RS;            // K/V rings, then the merge
+__global__ void __launch_bounds__(kTcThreads, TcTile<D>::BLOCKS)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                bf16* __restrict__ o, int Sq, int Sk, int H, int Hkv,
+                int causal, int window, float scale_log2) {
+  using T = TcTile<D>;
+  constexpr int BKV = T::BKV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hopper::align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  // [group][stage][K, V], then the merge
+  unsigned char* ring = base + T::Q_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + T::RING);
+  uint64_t* full = q_full + 1;             // [group][stage]
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q_lo = qt * kTcBQ;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int grp = warp / 4, wq = warp % 4;  // group; its 16 rows: wq
-  const int gtid = tid % kTcGroupThreads;
-  const int g = lane / 4, t = lane % 4;
-  const int row_a = q_lo + wq * 16 + g;   // this lane's rows: a, a + 8
-  bf16* ring = kv0 + grp * 4 * TILE;      // [stage][K, V]
-
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)Hkv * D;
-  const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
-  const bf16* kb = k + ((size_t)b * Sk * Hkv + hk) * D;
-  const bf16* vb = v + ((size_t)b * Sk * Hkv + hk) * D;
-
-  // visible KV tiles of this query tile (the TPU kernel's pl.when test);
-  // group 0 takes tiles lo, lo + 2, ..., group 1 lo + 1, lo + 3, ...
-  const int n_tiles = (Sk + kTcBKV - 1) / kTcBKV;
+  // visible KV tiles of this query tile (the TPU kernel's pl.when test):
+  // lo, lo + 1, ..., hi - 1, taken in turn by warpgroups 0 and 1
+  const int n_tiles = (Sk + BKV - 1) / BKV;
   int hi = n_tiles;
-  if (causal) hi = min(n_tiles, (q_lo + kTcBQ - 1) / kTcBKV + 1);
+  if (causal) hi = min(n_tiles, (q_lo + kTcBQ - 1) / BKV + 1);
   int lo = 0;
-  if (window > 0 && q_lo - window + 1 > 0) lo = (q_lo - window + 1) / kTcBKV;
+  if (window > 0 && q_lo - window + 1 > 0) lo = (q_lo - window + 1) / BKV;
+  const int n_vis = max(hi - lo, 0);
+  const int tid = threadIdx.x;
 
-  tc_load_tile<D, kTcBQ, kTcThreads>(qs, qb, q_lo, Sq, q_stride, tid);
-  if (lo + grp < hi) {
-    tc_load_tile<D, kTcBKV, kTcGroupThreads>(
-        ring, kb, (lo + grp) * kTcBKV, Sk, kv_stride, gtid);
-    tc_load_tile<D, kTcBKV, kTcGroupThreads>(
-        ring + TILE, vb, (lo + grp) * kTcBKV, Sk, kv_stride, gtid);
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < 2 * kTcStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init_fence();
   }
-  mma::cp_async_commit();
-  mma::cp_async_wait<0>();
-  __syncthreads();                       // Q and each group's first tile
+  __syncthreads();
 
-  float acc[DT][4];
+  // the group as a value the compiler knows is the same across a warp
+  const int grp = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int wt = tid % 128, w = wt / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q_lo + 16 * w;            // this warp's first row
+  const int row_a = r0 + g;                // this lane's rows: a, a + 8
+  const int n_mine = (n_vis - grp + 1) / 2;  // tiles grp, grp + 2, ...
+  const uint32_t q_addr = hopper::smem_addr(qs);
+  const uint32_t ring_addr = hopper::smem_addr(ring);
+  // the group's j-th tile lies in its stage j % kTcStages
+  auto stage = [&](int j) { return grp * kTcStages + j % kTcStages; };
+  auto k_addr = [&](int j) {
+    return ring_addr + stage(j) * 2 * T::KV_BYTES;
+  };
+  // one thread of the group loads its j-th tile, K and V, by TMA
+  auto load = [&](int j) {
+    const int st = stage(j);
+    bf16* kst = reinterpret_cast<bf16*>(ring + st * 2 * T::KV_BYTES);
+    bf16* vst = kst + BKV * D;
+    const int row = (lo + grp + 2 * j) * BKV;
+    hopper::mbar_expect_tx(&full[st], 2 * T::KV_BYTES);
+    for (int cb = 0; cb < T::NB; ++cb) {
+      hopper::tma_load_4d(kst + cb * BKV * T::W, &tm_k, &full[st],
+                          cb * T::W, hk, row, b);
+      hopper::tma_load_4d(vst + cb * BKV * T::W, &tm_v, &full[st],
+                          cb * T::W, hk, row, b);
+    }
+  };
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_full, T::Q_BYTES);
+    for (int cb = 0; cb < T::NB; ++cb)
+      hopper::tma_load_4d(qs + cb * kTcBQ * T::W, &tm_q, q_full, cb * T::W,
+                          h, q_lo, b);
+  }
+  if (wt == 0)
+    for (int j = 0; j < kTcStages && j < n_mine; ++j) load(j);
+
+  float acc[T::NB][T::W / 2];
 #pragma unroll
-  for (int d = 0; d < DT; ++d)
-    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  for (int nb = 0; nb < T::NB; ++nb)
+#pragma unroll
+    for (int c = 0; c < T::W / 2; ++c) acc[nb][c] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};               // this lane's share of the row sum
+  float s[BKV / 2], alpha[2];
+  uint32_t pa[BKV / 16][4];              // P as the A fragments of P V
 
-  int st = 0;
-  for (int kt = lo + grp; kt < hi; kt += 2, st ^= 1) {
-    if (kt + 2 < hi) {                   // the group's next tile loads now
-      bf16* nxt = ring + (st ^ 1) * 2 * TILE;
-      tc_load_tile<D, kTcBKV, kTcGroupThreads>(
-          nxt, kb, (kt + 2) * kTcBKV, Sk, kv_stride, gtid);
-      tc_load_tile<D, kTcBKV, kTcGroupThreads>(
-          nxt + TILE, vb, (kt + 2) * kTcBKV, Sk, kv_stride, gtid);
-      mma::cp_async_commit();
-      mma::cp_async_wait<1>();
-    } else {
-      mma::cp_async_wait<0>();
+  // step j issues S_j = Q K_j^T and O += P_{j-1} V_{j-1}, runs the
+  // softmax of S_j while the second product runs, refills the stage of
+  // tile j - 1 with tile j - 1 + kTcStages, then rescales O once no
+  // product is in flight
+  hopper::mbar_wait(q_full, 0);
+  if (n_mine > 0) {
+    hopper::mbar_wait(&full[stage(0)], 0);
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+    tc_scores<D>(s, q_addr, k_addr(0));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    tc_softmax<BKV>(s, m, l, alpha, (lo + grp) * BKV, r0, row_a, t, Sk,
+                    causal, window, scale_log2);
+    tc_pack_p<BKV>(s, pa);
+  }
+  for (int j = 1; j < n_mine; ++j) {
+    hopper::mbar_wait(&full[stage(j)], (j / kTcStages) & 1);
+    hopper::fence_regs(s);
+#pragma unroll
+    for (int nb = 0; nb < T::NB; ++nb) hopper::fence_regs(acc[nb]);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) hopper::fence_regs(pa[kk]);
+    hopper::wgmma_fence();
+    tc_scores<D>(s, q_addr, k_addr(j));
+    hopper::wgmma_commit();
+    tc_pv<D>(acc, pa, k_addr(j - 1) + T::KV_BYTES);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();             // S_j is done
+    hopper::fence_regs(s);
+    tc_softmax<BKV>(s, m, l, alpha, (lo + grp + 2 * j) * BKV, r0, row_a, t,
+                    Sk, causal, window, scale_log2);
+    hopper::wgmma_wait<0>();             // P V of tile j - 1 too
+#pragma unroll
+    for (int nb = 0; nb < T::NB; ++nb) hopper::fence_regs(acc[nb]);
+    if (j - 1 + kTcStages < n_mine) {    // every warp is done with it
+      group_sync(grp);
+      if (wt == 0) load(j - 1 + kTcStages);
     }
-    group_sync(grp);
-    const bf16* kst = ring + st * 2 * TILE;
-    const bf16* vst = kst + TILE;
-    const int k_lo = kt * kTcBKV;
-    // a tile wholly masked for this warp's 16 rows changes nothing
-    const bool skip =
-        (causal && k_lo > q_lo + wq * 16 + 15) ||
-        (window > 0 && k_lo + kTcBKV - 1 <= q_lo + wq * 16 - window);
-    if (!skip) {
-      // S = Q K^T: 16 rows x 32 keys per warp
-      float s[NT][4];
+    tc_pack_p<BKV>(s, pa);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int nb = 0; nb < T::NB; ++nb)
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        mma::ldsm_x4(a, qs + (wq * 16 + lane % 16) * RS + kk * 16 +
-                            (lane / 16) * 8);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bb[4];
-          mma::ldsm_x4(bb, kst + (np * 16 + lane % 8 + (lane / 16) * 8) * RS +
-                               kk * 16 + ((lane / 8) % 2) * 8);
-          mma::mma_bf16(s[2 * np], a, bb[0], bb[1]);
-          mma::mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
-        }
+      for (int c = 0; c < T::W / 8; ++c) {
+        acc[nb][4 * c] *= alpha[0];
+        acc[nb][4 * c + 1] *= alpha[0];
+        acc[nb][4 * c + 2] *= alpha[1];
+        acc[nb][4 * c + 3] *= alpha[1];
       }
-
-      // scale into the log2 domain; mask only tiles on an edge
-      const bool edge = (causal && k_lo + kTcBKV - 1 > q_lo + wq * 16) ||
-                        k_lo + kTcBKV > Sk ||
-                        (window > 0 &&
-                         k_lo + window <= q_lo + wq * 16 + 15);
+  }
+  if (n_mine > 0) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int nb = 0; nb < T::NB; ++nb) hopper::fence_regs(acc[nb]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale_log2;
-          if (edge) {
-            const int qpos = row_a + (e >= 2 ? 8 : 0);
-            const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
-            bool keep = kpos < Sk;
-            if (causal) keep = keep && kpos <= qpos;
-            if (window > 0) keep = keep && kpos > qpos - window;
-            if (!keep) x = kNegInf;
-          }
-          s[j][e] = x;
-        }
-
-      // online softmax on the fragment: rows a (e = 0, 1), a + 8 (2, 3)
-      float mx[2] = {kNegInf, kNegInf};
+    for (int kk = 0; kk < BKV / 16; ++kk) hopper::fence_regs(pa[kk]);
+    hopper::wgmma_fence();
+    tc_pv<D>(acc, pa, k_addr(n_mine - 1) + T::KV_BYTES);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = exp2f(m[r] - m_new);
-        m[r] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-      uint32_t pa[NT / 2][4];            // P as the A fragments of P V
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float p0 = exp2f(s[j][0] - m[0]), p1 = exp2f(s[j][1] - m[0]);
-        const float p2 = exp2f(s[j][2] - m[1]), p3 = exp2f(s[j][3] - m[1]);
-        rs[0] += p0 + p1;
-        rs[1] += p2 + p3;
-        pa[j / 2][(j % 2) * 2] = mma::pack_bf16(p0, p1);
-        pa[j / 2][(j % 2) * 2 + 1] = mma::pack_bf16(p2, p3);
-      }
-      l[0] = l[0] * alpha[0] + rs[0];
-      l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        acc[d][0] *= alpha[0];
-        acc[d][1] *= alpha[0];
-        acc[d][2] *= alpha[1];
-        acc[d][3] *= alpha[1];
-      }
-
-      // O += P V
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk)
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t bb[4];
-          mma::ldsm_x4_t(bb, vst + (kk * 16 + lane % 8 +
-                                    ((lane / 8) % 2) * 8) * RS +
-                                 dp * 16 + (lane / 16) * 8);
-          mma::mma_bf16(acc[2 * dp], pa[kk], bb[0], bb[1]);
-          mma::mma_bf16(acc[2 * dp + 1], pa[kk], bb[2], bb[3]);
-        }
-    }
-    group_sync(grp);                     // this stage may be refilled
+    for (int nb = 0; nb < T::NB; ++nb) hopper::fence_regs(acc[nb]);
   }
 
 #pragma unroll
@@ -563,61 +639,135 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  // merge the two groups' partial softmax states: group 1 hands its
-  // fragments to group 0 through the (now idle) K/V rings
-  float4* xfer = reinterpret_cast<float4*>(kv0);
-  __syncthreads();
+  // merge the two groups' softmax states: group 1 hands its fragments to
+  // group 0 through the rings, idle once both are done
+  float4* xfer = reinterpret_cast<float4*>(ring);
+  consumers_sync();
   if (grp == 1) {
 #pragma unroll
-    for (int d = 0; d < DT; ++d)
-      xfer[(wq * DT + d) * 32 + lane] =
-          make_float4(acc[d][0], acc[d][1], acc[d][2], acc[d][3]);
-    xfer[(4 * DT + wq) * 32 + lane] = make_float4(m[0], m[1], l[0], l[1]);
-  }
-  __syncthreads();
-  if (grp == 1) return;
-  const float4 ml = xfer[(4 * DT + wq) * 32 + lane];
-  const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
-  float a0[2], a1[2], inv[2];
+    for (int nb = 0; nb < T::NB; ++nb)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float mm = fmaxf(m[r], m1[r]);
-    a0[r] = exp2f(m[r] - mm);
-    a1[r] = exp2f(m1[r] - mm);
-    inv[r] = 1.f / fmaxf(l[r] * a0[r] + l1[r] * a1[r], 1e-30f);
+      for (int c = 0; c < T::W / 8; ++c)
+        xfer[(nb * (T::W / 8) + c) * 128 + wt] =
+            make_float4(acc[nb][4 * c], acc[nb][4 * c + 1],
+                        acc[nb][4 * c + 2], acc[nb][4 * c + 3]);
+    xfer[(D / 8) * 128 + wt] = make_float4(m[0], m[1], l[0], l[1]);
   }
-  bf16* orow_a = o + ((size_t)(b * Sq + row_a) * H + h) * D + 2 * t;
-  bf16* orow_b = orow_a + (size_t)8 * H * D;
+  consumers_sync();
+  if (grp == 0) {
+    const float4 ml = xfer[(D / 8) * 128 + wt];
+    const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
+    float a0[2], a1[2], inv[2];
 #pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const float4 x1 = xfer[(wq * DT + d) * 32 + lane];
-    if (row_a < Sq)
-      *reinterpret_cast<uint32_t*>(orow_a + d * 8) = mma::pack_bf16(
-          (acc[d][0] * a0[0] + x1.x * a1[0]) * inv[0],
-          (acc[d][1] * a0[0] + x1.y * a1[0]) * inv[0]);
-    if (row_a + 8 < Sq)
-      *reinterpret_cast<uint32_t*>(orow_b + d * 8) = mma::pack_bf16(
-          (acc[d][2] * a0[1] + x1.z * a1[1]) * inv[1],
-          (acc[d][3] * a0[1] + x1.w * a1[1]) * inv[1]);
+    for (int r = 0; r < 2; ++r) {
+      const float mm = fmaxf(m[r], m1[r]);
+      a0[r] = exp2f(m[r] - mm);
+      a1[r] = exp2f(m1[r] - mm);
+      inv[r] = 1.f / fmaxf(l[r] * a0[r] + l1[r] * a1[r], 1e-30f);
+    }
+    bf16* orow_a = o + ((size_t)(b * Sq + row_a) * H + h) * D + 2 * t;
+    bf16* orow_b = orow_a + (size_t)8 * H * D;
+#pragma unroll
+    for (int nb = 0; nb < T::NB; ++nb)
+#pragma unroll
+      for (int c = 0; c < T::W / 8; ++c) {
+        const float4 x1 = xfer[(nb * (T::W / 8) + c) * 128 + wt];
+        const int col = nb * T::W + 8 * c;
+        if (row_a < Sq)
+          *reinterpret_cast<uint32_t*>(orow_a + col) = mma::pack_bf16(
+              (acc[nb][4 * c] * a0[0] + x1.x * a1[0]) * inv[0],
+              (acc[nb][4 * c + 1] * a0[0] + x1.y * a1[0]) * inv[0]);
+        if (row_a + 8 < Sq)
+          *reinterpret_cast<uint32_t*>(orow_b + col) = mma::pack_bf16(
+              (acc[nb][4 * c + 2] * a0[1] + x1.z * a1[1]) * inv[1],
+              (acc[nb][4 * c + 3] * a0[1] + x1.w * a1[1]) * inv[1]);
+      }
   }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found once through the runtime (so the library
+// needs no link to libcuda); null where it is missing.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor as a 4-d tensor map whose box is `rows`
+// positions of one head, W columns (one block of TcTile<D>) at a time.
+template <int D>
+bool tile_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int rows) {
+  using T = TcTile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::W, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The kernel's shared-memory limit, set once per device.
+template <int D>
+cudaError_t tc_attributes() {
+  static std::atomic<unsigned long long> done{0};   // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(flash_tc_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)TcTile<D>::SMEM);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
               int Sq, int Sk, int H, int Hkv, int causal, int window,
               float scale, cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<D>();
-  auto kernel = flash_tc_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t e = tc_attributes<D>();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv;
+  if (!tile_map<D>(&mq, q, B, Sq, H, kTcBQ) ||
+      !tile_map<D>(&mk, k, B, Sk, Hkv, TcTile<D>::BKV) ||
+      !tile_map<D>(&mv, v, B, Sk, Hkv, TcTile<D>::BKV))
+    return kTensorMapError;
   const dim3 grid(H, B, (Sq + kTcBQ - 1) / kTcBQ);
-  kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, Hkv,
-      causal, window, scale * kLog2e);
+  flash_tc_kernel<D><<<grid, kTcThreads, TcTile<D>::SMEM, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), Sq, Sk, H, Hkv, causal, window,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -829,7 +979,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return -1;
 }
 
-// Message of a cudaError_t returned by the launch entry above.
+// Message of an error returned by the launch entry above: a cudaError_t,
+// or kTensorMapError.
 extern "C" const char* kernel_error_string(int err) {
+  if (err == kTensorMapError)
+    return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

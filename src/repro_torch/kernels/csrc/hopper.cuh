@@ -1,0 +1,215 @@
+// Hopper (sm_90a) building blocks of the port's bf16 tensor-core flash
+// kernel: warpgroup products (wgmma) and the shared-memory descriptors
+// they read, the swizzled tile layout that TMA writes and wgmma reads,
+// mbarriers and TMA tile loads.
+//
+// Tile layout.  A tile of R rows by C bf16 columns is stored as C / W
+// column blocks, each R rows of W elements (2W = 128, 64 or 32 bytes a
+// row), block after block.  Inside a block the 16-byte chunks of a row are
+// XOR-swizzled: byte offset o holds what a plain row-major block holds at
+// o ^ ((o >> 3) & (2W - 16)), which is the 128B (W = 64), 64B (W = 32) or
+// 32B (W = 16) swizzle of a TMA tensor map and of a wgmma descriptor.  For
+// W = 64 that is chunk c of row r at chunk c ^ (r % 8).  Blocks start at
+// multiples of 1024 bytes, so the pattern, which the hardware takes from
+// the address bits, starts afresh in each.
+//
+// wgmma (m64nNk16, bf16 in, fp32 accumulate).  A 64 x 16 A operand and a
+// 16 x N B operand per instruction, issued by the 128 threads of one
+// warpgroup.  The fp32 accumulator of a 64 x N product lives in N / 2
+// registers a thread: warp w of the group holds rows 16w..16w+15, and
+// register 4j + e holds (row 16w + g + 8 (e / 2), column 8j + 2t + e % 2)
+// for lane 4g + t, the C layout of mma.sync m16n8k16 (mma.cuh) per 8
+// columns.  A from registers has mma.sync's A layout per warp, so a
+// product's accumulator rounded to bf16 in pairs feeds the next product
+// (two 8-column pieces make one 16-deep step).
+//
+// Descriptors.  K-major operand (its rows are M or N, the depth K runs
+// along the row): k-step kk starts at block 16kk / W, byte 2 (16kk % W)
+// of the row (the hardware applies the swizzle to the address it forms);
+// 8-row groups are 16W bytes apart (SBO).  MN-major operand (its rows run
+// along K, M or N along the row; one block of W columns per instruction):
+// k-step kk starts 16 rows = 32W bytes further, SBO again 16W.  The
+// leading offset (LBO) is read only for K extents wider than a swizzle
+// row or several MN blocks in one instruction, which these kernels never
+// issue.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1024 bytes (launches ask for
+// 1024 bytes more than they use).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, swizzle of 2W = 128, 64 or 32 bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, int swizzle_bytes) {
+  const uint64_t mode = swizzle_bytes == 128 ? 1 : swizzle_bytes == 64 ? 2 : 3;
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes, so that the
+// compiler does not move their uses across the fence / wait around it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define D8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A B, A and B from shared memory; TA / TB: 0 K-major, 1 MN-major.
+// accumulate = 0 overwrites d.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : D8(0), D8(8)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+}
+
+// d (+)= A B, A from registers (mma.sync's A fragment per warp), B from
+// shared memory; TB: 0 K-major, 1 MN-major.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_rs: N is 16, 32, 64");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : D8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : D8(0), D8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
+}
+
+#undef D8
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` of TMA transfers in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Clock cycles a wait spins before it gives up with a trap (an error of
+// the launch instead of a hung card): ~2 s, far past any wait of a
+// correct run.
+constexpr long long kMaxWaitCycles = 4'000'000'000LL;
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > kMaxWaitCycles) __trap();
+  }
+}
+
+// One box of a 4-d tensor map into shared memory, completing on `bar`;
+// coordinates innermost first.  Boxes past the tensor's end are zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+}  // namespace hopper

@@ -64,7 +64,11 @@
 // cumsum and the decay differences stay in fp64, as on the CUDA-core
 // route.  The workspace traffic (dS and h_in, 4 bytes per (b, h, chunk,
 // p, n) each, written once and read once) is this design's cost; it does
-// not enter the bound.
+// not enter the bound.  A single wgmma kernel without the workspaces, its
+// blocks handing the state from chunk to chunk through L2, was measured
+// against these passes: faster at B = 4, slower at B = 1, where the
+// chain of hand-offs sets the time, so it did not replace them (PERF.md,
+// section 6).  The kernels' shared-memory limits are set once per device.
 //
 // CUDA-core route (fp32, and bf16 shapes the tensor cores refuse, such
 // as P = 8; P, N and Q multiples of 4): the same three passes on the CUDA
@@ -545,18 +549,47 @@ int launch_scan(const void* x, const float* dt, const float* a_log,
                 const void* Bin, const void* Cin, const bf16* h_in, void* y,
                 int B, int S, int H, int G, int P, int N, size_t smem,
                 cudaStream_t stream) {
-  auto kernel = ssd_chunk_scan_kernel<QT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(S / (16 * QT), H, B), 32 * QT * scan_halves<QT>(), smem,
+  ssd_chunk_scan_kernel<QT><<<dim3(S / (16 * QT), H, B), 32 * QT * scan_halves<QT>(), smem,
            stream>>>(
       static_cast<const bf16*>(x), dt, a_log, static_cast<const bf16*>(Bin),
       static_cast<const bf16*>(Cin), h_in, static_cast<bf16*>(y), S, H, G,
       P, N);
   return (int)cudaGetLastError();
+}
+
+template <int QT>
+cudaError_t scan_smem_attribute(int most) {
+  return cudaFuncSetAttribute(ssd_chunk_scan_kernel<QT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              most);
+}
+
+// The tensor-core block kernels' attribute, set once per device: the
+// most dynamic shared memory a block may ask for (each launch still asks
+// only for what its shape needs; neither kernel has static shared
+// memory), for the chunk-state kernel and every chunk-scan instance.
+cudaError_t tc_attributes() {
+  static std::atomic<unsigned long long> done{0};   // a bit per device
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_chunk_state_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most);
+  const cudaError_t scan[] = {
+      scan_smem_attribute<1>(most), scan_smem_attribute<2>(most),
+      scan_smem_attribute<3>(most), scan_smem_attribute<4>(most),
+      scan_smem_attribute<5>(most), scan_smem_attribute<6>(most),
+      scan_smem_attribute<7>(most), scan_smem_attribute<8>(most)};
+  for (const cudaError_t one : scan)
+    if (e == cudaSuccess) e = one;
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 int launch_tc(const void* x, const float* dt, const float* a_log,
@@ -565,12 +598,8 @@ int launch_tc(const void* x, const float* dt, const float* a_log,
               int G, int P, int N, int Q, cudaStream_t stream) {
   const int nc = S / Q;
   const size_t smem1 = tc_state_smem(P, N, Q);
-  if (smem1 > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem1);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t e = tc_attributes();
+  if (e != cudaSuccess) return (int)e;
   ssd_chunk_state_kernel<<<dim3(nc, H, B), kStateThreads, smem1, stream>>>(
       static_cast<const bf16*>(x), dt, a_log, static_cast<const bf16*>(Bin),
       ws, cs_end, S, H, G, P, N, Q);

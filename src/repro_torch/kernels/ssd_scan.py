@@ -141,5 +141,6 @@ def launch(x, dt, a_log, B_in, C_in, *, chunk: int, force: str = ""):
         build.DTYPE_CODES[dtype], code,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check("ssd_scan", err)
-    stats.launched(KERNELS_PER_CALL, route=taken)
+    stats.launched(KERNELS_PER_CALL, route=taken,
+                   shape=(dtype, Bb, S, H, G, P, N, chunk))
     return y, state

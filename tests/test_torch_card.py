@@ -16,7 +16,11 @@ shapes (fp32, 2 heads on 1, D = 16 and 8, B up to 8 over 64 slots), at
 GQA groups 10, 17, 24 and 32 and at lengths 0, 1, 64, 65 and S (a row
 of length 0 is 0, as from the TPU kernel), and the SSD at a chunk of
 40; every route of decode and the SSD is forced and counted (an SSD
-call is three kernels, a decode call two past one split).
+call is three kernels, a decode call two past one split).  The bf16
+tensor-core kernels run at every head dim 16-256 (GQA groups 1, 7 and
+16, windows, partial tiles) and, for the SSD, at one chunk, at 16
+chunks over many more blocks than the card holds at once, and at chunk
+128 and N up to 272.
 """
 
 import numpy as np
@@ -241,6 +245,55 @@ def test_cuda_ssd_scan_routes_match_plain(cuda, B, S, H, P, G, N, chunk,
         if r == rule:
             y0, h0 = ssd_mod.launch(*args, chunk=chunk)
             assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+# the bf16 tensor-core kernels: every head dim, GQA groups 1, 7 and 16,
+# windows, partial tiles (S = 100: a 64-row tile and a 36-row one)
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (14, 2), (16, 1)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+def test_cuda_flash_tensor_core_head_dims_groups_windows(cuda, D, H, Hkv,
+                                                         window):
+    from repro_torch.kernels import flash_attention as flash_mod
+    B, S = 2, 100
+    q, k, v = (_t(x, "bfloat16").to(cuda) for x in _inputs(
+        D + H, (B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    got = flash_mod.launch(q, k, v, causal=True, window=window,
+                           force="tensor_core")
+    _close(got.cpu(), want.cpu().float().numpy(), "bfloat16")
+    assert torch.equal(got, flash_mod.launch(q, k, v, causal=True,
+                                             window=window))
+
+
+SSD_TC_GRID = [
+    # B, S, H, P, G, N, chunk
+    (2, 64, 4, 64, 1, 128, 64),       # one chunk
+    (8, 1024, 48, 64, 1, 128, 64),    # 16 chunks, 6144 blocks
+    (2, 2048, 24, 64, 2, 128, 128),   # a chunk of 128
+    (2, 256, 4, 80, 1, 64, 64),       # P = 80
+    (1, 512, 8, 64, 1, 256, 64),      # N = 256
+    (1, 256, 4, 64, 1, 256, 128),     # N = 256 at a chunk of 128
+    (1, 256, 4, 64, 1, 272, 64),      # N past 256
+    (3, 192, 6, 32, 3, 48, 48),       # chunk 48, N 48, groups of 2
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_TC_GRID)
+def test_cuda_ssd_tensor_core_shapes_match_plain(cuda, B, S, H, P, G, N,
+                                                 chunk):
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    x, B_in, C_in, dt = _inputs(10, (B, S, H, P), (B, S, G, N), (B, S, G, N),
+                                (B, S, H))
+    x, B_in, C_in = (_t(a, "bfloat16").to(cuda) for a in (x, B_in, C_in))
+    dt = torch.nn.functional.softplus(_t(dt, "float32")).to(cuda)
+    a_log = torch.log(torch.linspace(1.0, 4.0, H)).to(cuda)
+    args = (x, dt, a_log, B_in, C_in)
+    assert ssd_mod.route("bfloat16", P, N, chunk) == "tensor_core"
+    want_y, want_h = ref.ssd_scan_ref(*args)
+    y, h = ssd_mod.launch(*args, chunk=chunk, force="tensor_core")
+    _close(y.cpu(), want_y.cpu().float().numpy(), "bfloat16")
+    _close(h.cpu(), want_h.cpu().numpy(), "bfloat16")
 
 
 DECODE_EDGES = (1, 64, 65)          # one row, one split, one split + 1

@@ -20,7 +20,8 @@
   thread would sum them, y leaves the tolerance at mamba2-130m's serving
   shape; in fp64 it stays well inside.
 * The wrapper's contract with the C entry on this route: three kernels a
-  call, and fp32 workspaces of the shapes the passes index.
+  call, counted with the call's shape, and fp32 workspaces of the shapes
+  the passes index.
 
 The kernels themselves run only on a card (``tests/test_torch_card.py``,
 ``chip_smoke.py``).
@@ -264,12 +265,14 @@ class _FakeLib:
     ("float32", 64, 128, 64, "cuda_core"),     # mamba2-130m in fp32
     ("bfloat16", 8, 16, 16, "cuda_core"),      # P = 8
     ("bfloat16", 16, 32, 32, "tensor_core"),
+    ("bfloat16", 80, 64, 64, "tensor_core"),   # P = 80
 ])
 def test_wrapper_hands_each_route_its_workspaces(monkeypatch, dtype, P, N,
                                                  chunk, taken):
     """The C entry gets three workspaces on both routes, sized as the
     passes index them (h_in fp32 on the CUDA cores, a bf16 pair on the
-    tensor cores), and each call counts three launches of its route."""
+    tensor cores), and each call counts three launches of its route and
+    one call of its shape."""
     lib = _FakeLib()
     allocated = []
     real_empty = torch.empty
@@ -289,6 +292,8 @@ def test_wrapper_hands_each_route_its_workspaces(monkeypatch, dtype, P, N,
     tin = _as(dtype, *_ssd_inputs(5, Bb, S, H, P, G, N), lib="torch")
     stats = KERNEL_STATS["ssd_scan"]
     before = dict(stats.launches_by_route)
+    key = (dtype, Bb, S, H, G, P, N, chunk)
+    calls_before = stats.calls_by_shape.get(key, 0)
     assert ssd_mod.route(dtype, P, N, chunk) == taken
     y, h = ssd_mod.launch(*tin, chunk=chunk)
     assert y.shape == (Bb, S, H, P) and h.shape == (Bb, H, P, N)
@@ -305,3 +310,4 @@ def test_wrapper_hands_each_route_its_workspaces(monkeypatch, dtype, P, N,
     after = dict(stats.launches_by_route)
     assert ssd_mod.KERNELS_PER_CALL == 3
     assert after.get(taken, 0) - before.get(taken, 0) == 3
+    assert stats.calls_by_shape[key] - calls_before == 1

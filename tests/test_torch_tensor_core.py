@@ -5,6 +5,18 @@
   the CUDA cores.  CPU tensors take the plain version and launch nothing.
 * Launch counts are kept by route, and an edited shared header renames
   the built library.
+* The flash tensor-core kernel's schedule (``_tc_tiles``, a mirror of
+  ``flash_tc_kernel``'s tile loop): every (query, key)
+  pair the causal and window masks leave visible lies in exactly one
+  loaded KV tile, no loaded tile is wholly masked for its query tile,
+  and the two warpgroups take alternate tiles.
+* A test-local PyTorch mirror of that kernel's arithmetic: per 64-row
+  query tile, each warpgroup's online softmax (log2 domain, the finite
+  mask) over its tiles with P rounded to bf16 before P V, then the two
+  states merged; held against ``ref.flash_attention_ref`` and the JAX
+  package's ``flash_attention`` (the Pallas kernel in interpret mode) at
+  bf16's tolerance, at sequence lengths that are not multiples of the
+  tiles.
 * A test-local PyTorch mirror of the SSD tensor-core route's three passes
   (chunk states, the state pass, the chunk scan) with the kernels'
   rounding points: x·w, the masked score matrix and the state entering a
@@ -82,6 +94,10 @@ def test_flash_route_rule(dtype, D, sq, sk, want):
     ("bfloat16", 64, 12, 64, "cuda_core"),      # N not a multiple of 16
     ("bfloat16", 64, 128, 256, "cuda_core"),    # chunk above 128
     ("bfloat16", 256, 512, 128, "cuda_core"),   # over one SM's memory
+    ("bfloat16", 80, 64, 128, "tensor_core"),   # P = 80
+    ("bfloat16", 64, 192, 128, "tensor_core"),
+    ("bfloat16", 64, 256, 128, "tensor_core"),  # 223,232 bytes a block
+    ("bfloat16", 64, 272, 64, "tensor_core"),   # N past 256
     ("float32", 64, 128, 64, "cuda_core"),
 ])
 def test_ssd_route_rule(dtype, P, N, chunk, want):
@@ -205,6 +221,8 @@ def _ssd_three_pass(x, dt, a_log, B_in, C_in, *, chunk, carry=_pair):
     (1, 64, 4, 16, 2, 16, 16),      # grouped B/C, P = 16
     (2, 64, 4, 16, 1, 32, 64),      # one chunk (S = chunk)
     (1, 256, 24, 64, 1, 128, 64),   # mamba2-130m's widths
+    (1, 256, 2, 80, 1, 32, 128),    # a chunk of 128, P = 80
+    (1, 1024, 2, 16, 1, 16, 64),    # 16 chunks
 ])
 def test_ssd_three_pass_algebra_matches_references(B, S, H, P, G, N, chunk):
     arrays = _ssd_inputs(B * 7 + S + P, B, S, H, P, G, N)
@@ -236,3 +254,148 @@ def test_one_bf16_rounding_would_miss_the_tolerance():
         return float(((y.float() - want_y.float()).abs() / limit).max())
 
     assert worst(_pair) <= 1.0 < worst(_single)
+
+
+# --------------------------------------------------------------------- #
+# the flash tensor-core kernel's schedule and arithmetic
+# --------------------------------------------------------------------- #
+# the tensor-core kernel's query rows a block (wgmma's M)
+TC_BLOCK_Q = 64
+
+
+def _tc_block_kv(head_dim):
+    """KV rows a tile of ``flash_tc_kernel`` (``TcTile<D>::BKV``): 64, and
+    32 at head dim 256, where six 64-row stages would not fit an SM."""
+    return 32 if head_dim == 256 else 64
+
+
+def _tc_tiles(sq, sk, causal, window, head_dim):
+    """``flash_tc_kernel``'s schedule: for each 64-row query tile, the KV
+    tiles it loads (those the causal and window masks leave partly
+    visible, in order), each with the warpgroup that takes it (0, 1, 0,
+    ...)."""
+    bkv = _tc_block_kv(head_dim)
+    n_tiles = -(-sk // bkv)
+    tiles = []
+    for q_lo in range(0, sq, TC_BLOCK_Q):
+        hi = n_tiles
+        if causal:
+            hi = min(n_tiles, (q_lo + TC_BLOCK_Q - 1) // bkv + 1)
+        lo = 0
+        if window > 0 and q_lo - window + 1 > 0:
+            lo = (q_lo - window + 1) // bkv
+        tiles.append([(kt, (kt - lo) % 2) for kt in range(lo, hi)])
+    return tiles
+
+
+def _visible(q, k, causal, window):
+    return (not causal or k <= q) and (window == 0 or k > q - window)
+
+
+@pytest.mark.parametrize("D", [64, 256])       # 64- and 32-row KV tiles
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 16, 100])
+@pytest.mark.parametrize("S", [1, 33, 64, 100, 257])
+def test_flash_tc_schedule_covers_each_visible_pair_once(S, window, causal,
+                                                          D):
+    BQ, BKV = TC_BLOCK_Q, _tc_block_kv(D)
+    tiles = _tc_tiles(S, S, causal, window, D)
+    assert len(tiles) == -(-S // BQ)
+    for qt, listed in enumerate(tiles):
+        kts = [kt for kt, _ in listed]
+        assert kts == sorted(set(kts))                 # each tile once
+        assert [c for _, c in listed] == [i % 2 for i in range(len(kts))]
+        rows = range(qt * BQ, min(S, qt * BQ + BQ))
+        for q in rows:
+            for k in range(S):
+                if _visible(q, k, causal, window):
+                    assert sum(kt * BKV <= k < kt * BKV + BKV
+                               for kt in kts) == 1
+        for kt in kts:                                 # no tile wholly masked
+            assert any(_visible(q, k, causal, window) for q in rows
+                       for k in range(kt * BKV, min(S, kt * BKV + BKV)))
+
+
+def _flash_tc_model(q, k, v, *, causal, window):
+    """(B, Sq, H, D) in q's dtype by ``flash_tc_kernel``'s arithmetic, in
+    PyTorch: per 64-row query tile, the KV tiles of ``_tc_tiles`` split
+    between the two warpgroups; each runs an online softmax in fp32 in the
+    log2 domain (masked scores at -0.7 FLT_MAX, so a tile wholly masked
+    for a row before its first visible one is wiped by alpha = 0) with P
+    rounded to bf16 before P V; then the two states are merged."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    BQ, BKV = TC_BLOCK_Q, _tc_block_kv(D)
+    neg = torch.tensor(-0.7 * np.finfo(np.float32).max, dtype=torch.float32)
+    scale_log2 = np.float32(1.0 / np.sqrt(D)) * np.float32(1.4426950408889634)
+    grp = torch.arange(H) // (H // Hkv)
+    kf = torch.zeros(B, -(-Sk // BKV) * BKV, H, D)
+    vf = torch.zeros_like(kf)
+    kf[:, :Sk] = k.float()[:, :, grp]
+    vf[:, :Sk] = v.float()[:, :, grp]
+    out = torch.zeros(B, Sq, H, D)
+    for qt, listed in enumerate(_tc_tiles(Sq, Sk, causal, window, D)):
+        rows = torch.arange(qt * BQ, qt * BQ + BQ)
+        n = min(Sq, qt * BQ + BQ) - qt * BQ
+        qf = torch.zeros(B, BQ, H, D)
+        qf[:, :n] = q.float()[:, qt * BQ:qt * BQ + n]
+        states = []
+        for consumer in (0, 1):
+            m = neg.expand(B, H, BQ).clone()
+            l = torch.zeros(B, H, BQ)
+            acc = torch.zeros(B, H, BQ, D)
+            for kt, c in listed:
+                if c != consumer:
+                    continue
+                keys = torch.arange(kt * BKV, kt * BKV + BKV)
+                kk, vv = kf[:, kt * BKV:kt * BKV + BKV], vf[:, kt * BKV:
+                                                            kt * BKV + BKV]
+                x = torch.einsum("bqhd,bkhd->bhqk", qf, kk) * scale_log2
+                keep = keys[None, :] < Sk
+                if causal:
+                    keep = keep & (keys[None, :] <= rows[:, None])
+                if window:
+                    keep = keep & (keys[None, :] > rows[:, None] - window)
+                x = torch.where(keep, x, neg)
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(x - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhqk,bkhd->bhqd", p.bfloat16().float(), vv)
+                m = m_new
+            states.append((m, l, acc))
+        (m0, l0, a0), (m1, l1, a1) = states
+        mm = torch.maximum(m0, m1)
+        w0, w1 = torch.exp2(m0 - mm), torch.exp2(m1 - mm)
+        o = (a0 * w0[..., None] + a1 * w1[..., None]) / torch.clamp(
+            l0 * w0 + l1 * w1, min=1e-30)[..., None]
+        out[:, qt * BQ:qt * BQ + n] = o.permute(0, 2, 1, 3)[:, :n]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,jax_too", [
+    (1, 96, 4, 2, 16, 48, True),     # the Pallas test's ragged GQA case
+    (1, 130, 4, 1, 32, 0, True),     # one row past two query tiles
+    (1, 200, 14, 2, 64, 0, False),   # a group of 7 (internvl2-1b)
+    (2, 100, 2, 2, 64, 33, True),
+    (1, 70, 2, 1, 128, 16, False),
+    (1, 100, 4, 1, 256, 0, False),   # gemma3-1b's head dim
+])
+def test_flash_tc_model_matches_references(B, S, H, Hkv, D, window,
+                                           jax_too):
+    arrays = [np.random.default_rng(S + D).standard_normal(sh).astype(
+        np.float32) for sh in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    got = _flash_tc_model(q, k, v, causal=True, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, D)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **BF16_TOL)
+    if jax_too:
+        import jax.numpy as jnp
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
+        jo = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                  block_q=32, block_kv=32)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(jo, np.float32), **BF16_TOL)
