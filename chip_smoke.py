@@ -51,9 +51,12 @@ non-zero:
    phase's cache lengths; decode lengths of 0, 1, one split, one split
    + 1 and S, where a row of length 0 must be 0 as from the TPU kernel;
    lm-tiny's decode at B = 1, 2, 4, 8 over 64 slots at head dim 16 and
-   8; GQA groups 17 and 32; an SSD chunk of 40, which the CUDA-core
-   scan pads to 16-row pieces; RG-LRU partial chunks and column
-   tiles).  ``decode_attention``
+   8; GQA groups 17 and 32; the tensor-core decode's cluster kernel at
+   lengths 0, 1, 5, 100 and S at every head dim and over 4096 slots,
+   where its ranks loop over tiles; flash in fp32 at the model checks'
+   prompts (1000 positions at head dim 64, 2100 at recurrentgemma-9b's
+   window); an SSD chunk of 40, which the CUDA-core scan pads to 16-row
+   pieces; RG-LRU partial chunks and column tiles).  ``decode_attention``
    and ``ssd_scan`` have two routes each (CUDA cores, tensor cores for
    bf16), ``flash_attention`` three (and the short route for fp32 with
    Sq, Sk <= 16): every case runs through the public wrapper and through
@@ -71,12 +74,16 @@ non-zero:
    the device while the host queues the whole batch, so ``ms`` is not the
    host's cadence, which ``host_ms`` reports beside it.  The same timing
    of an empty kernel (``torch.cuda._sleep(0)``) is the per-launch floor
-   of ``ms``; at attn-tiny's shapes each route's kernel duration from
-   ``torch.profiler`` is printed beside its ``ms``, and so is each
-   tensor-core route's at the serving shapes.  For each SSD route at the
-   serving shapes the profiler's kernel records per call must equal the
-   launches the wrapper counted, and ``KERNELS_PER_CALL`` (three passes
-   on either route).  The bf16 SSD also runs at 16 chunks over 6144
+   of ``ms``; each route's kernel duration from ``torch.profiler`` is
+   printed beside its ``ms`` at the timed shapes.  For each SSD route at
+   the serving shapes the profiler's kernel records per call must equal
+   the launches the wrapper counted, and ``KERNELS_PER_CALL`` (three
+   passes on either route); for each decode route the launches counted
+   must be one a call on the tensor cores (the cluster merges on chip)
+   and two past one split on the CUDA cores, and the profiler's records
+   per call, rounded, the same.  The clusters of each size the card
+   holds at once (``decode_attention_max_active_clusters``) are
+   printed.  The bf16 SSD also runs at 16 chunks over 6144
    blocks.  The blocks a SM that the footprint of the SSD's
    CUDA-core chunk scan allows (the occupancy calculator) are printed,
    and must be two.
@@ -161,9 +168,13 @@ non-zero:
    (the tensor cores for the attention kernels and ``ssd_scan``, the
    chunked RG-LRU scan), no other kernel may launch, and no wrapper may
    take its CPU route.  The launch counts (by route) are reset just
-   before each path and read just after it; so are the SSD's calls by
-   shape, and after the last path the SSD is timed at each shape the
-   paths called it with (the ``ssd_scan`` row's ``calls_by_shape``).
+   before each path and read just after it; so are the SSD's and
+   decode's calls by shape, and after the last path each is timed at
+   every shape the paths called it with (the ``ssd_shapes`` and
+   ``decode_shapes`` phases; decode on both routes with
+   :data:`DECODE_VALID` valid rows, and each route's total over the
+   calls; ``calls_by_shape`` in the ``ssd_scan`` and
+   ``decode_attention`` rows).
 6. **micro** — per micro model: the card's step against the CPU plain
    step on the same weights (fp32, 2e-5), a trace of one runner step at
    b = 1 and 256 (attn-tiny also at its rungs S = 8 and 4), then the
@@ -249,6 +260,9 @@ PEAK = {"float32": 67e12, "float64": 34e12, "float64_tc": 67e12,
         "bfloat16": 989e12}
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 SERVE_SECONDS = 8.0
+# valid cache rows of a decode call timed at a serving shape (at most S):
+# a 512-token prompt and up to 8 decode steps
+DECODE_VALID = 520
 # trace phase: one prefill of TRACE_PROMPT tokens, then TRACE_DECODE steps
 TRACE_PROMPT, TRACE_DECODE, TRACE_MAX_LEN, TRACE_TOP = 512, 4, 1024, 8
 # path -> {kernel its serve block must launch: the one route every bf16
@@ -348,8 +362,9 @@ TRAIN_MARGIN = 0.02
 TRAIN_REDUCED = {"n_repeats": 1, "vocab_size": 1024}
 # (row, headline, route, source, the TPU kernel it replaces): one row per
 # route of each kernel, timed forced at its headline's shape: flash's
-# tensor cores at gemma3-1b's prefill, its short route and CUDA-core
-# kernel (flash_fwd_kernel) at attn-tiny's, the CUDA-core decode and SSD
+# tensor cores at gemma3-1b's prefill, its short route at attn-tiny's,
+# its CUDA-core kernel (flash_fwd_kernel) in fp32 at the tensor cores'
+# shape (the fp32 model checks run it), the CUDA-core decode and SSD
 # kernels in fp32 at their bf16 rows' shapes, and the CUDA-core decode
 # again at lm-tiny's largest decode cell; each row's launches are those
 # of its route
@@ -359,7 +374,7 @@ KERNEL_ROWS = (
      _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
     ("flash_attention/short", "flash_attention/attn-tiny", "short",
      _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
-    ("flash_attention/cuda_core", "flash_attention/attn-tiny", "cuda_core",
+    ("flash_attention/cuda_core", "flash_attention/fp32", "cuda_core",
      _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
     ("decode_attention", "decode_attention", "tensor_core",
      _CSRC + "decode_attention.cu",
@@ -428,24 +443,27 @@ def main(argv=None) -> int:
 
     launches = {n: {} for n in KERNEL_STATS}
     by_path = {n: {} for n in KERNEL_STATS}
-    ssd_calls = {}
+    calls = {"ssd_scan": {}, "decode_attention": {}}
     for path, needed in PATHS.items():
         _reset_counts()
         serve_rep = phase_serve(torch, path)
         counts, cpu_calls = _counts()
-        shapes = dict(KERNEL_STATS["ssd_scan"].calls_by_shape)
+        shapes = {n: dict(KERNEL_STATS[n].calls_by_shape) for n in calls}
         _free(torch)                  # the engine went with phase_serve
         serve_rep["launches_by_route"] = counts
         serve_rep["cpu_calls"] = cpu_calls
-        serve_rep["ssd_calls_by_shape"] = [[*k, n] for k, n in
-                                           shapes.items()]
+        for n, by_shape in shapes.items():
+            serve_rep[f"{n}_calls_by_shape"] = [[*k, c] for k, c in
+                                                by_shape.items()]
+            for k, c in by_shape.items():
+                calls[n][k] = calls[n].get(k, 0) + c
         emit({"phase": "serve", **serve_rep})
         _check_launches(path, counts, cpu_calls, needed)
         _tally(counts, path, launches, by_path)
-        for k, n in shapes.items():
-            ssd_calls[k] = ssd_calls.get(k, 0) + n
-    ssd_shapes = ssd_calls_by_shape(torch, ssd_calls)
+    ssd_shapes = ssd_calls_by_shape(torch, calls["ssd_scan"])
     emit({"phase": "ssd_shapes", "rows": ssd_shapes})
+    decode_shapes = decode_calls_by_shape(torch, calls["decode_attention"])
+    emit({"phase": "decode_shapes", **decode_shapes})
     for name in MICRO_PATHS:
         micro_rep = phase_micro(torch, name)
         _tally(micro_rep["launches_by_route"], name, launches, by_path)
@@ -470,6 +488,9 @@ def main(argv=None) -> int:
     for row in rows:
         if row["name"] == "ssd_scan":
             row["calls_by_shape"] = ssd_shapes
+        if row["name"] == "decode_attention":
+            row["calls_by_shape"] = decode_shapes["rows"]
+            row["calls_weighted_ms"] = decode_shapes["weighted_ms"]
     emit({"kernels": rows})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -695,6 +716,54 @@ def ssd_calls_by_shape(torch, calls) -> list:
     return rows
 
 
+def decode_calls_by_shape(torch, calls) -> dict:
+    """Decode timed at each shape the serving paths called it with
+    (``calls``: the wrapper's (dtype, B, S, H, Hkv, D) -> calls), with
+    :data:`DECODE_VALID` valid rows (at most S) as the serve phase leaves
+    them: each route forced (device ms, host ms), the bound, and the
+    calls times the excess of the route the shape takes; then each
+    route's total over the calls (``weighted_ms``)."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for (dt, B, S, H, Hkv, D), n in sorted(calls.items()):
+        dtype = getattr(torch, dt)
+        q, kc, vc = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((B, 1, H, D), (B, S, Hkv, D),
+                                   (B, S, Hkv, D)))
+        valid = min(DECODE_VALID, S)
+        lengths = torch.full((B,), valid, dtype=torch.int32, device=dev)
+        rule = decode_mod.route(dt, D, H // Hkv)
+        routes = {}
+        for r in ("tensor_core", "cuda_core"):
+            if r == "tensor_core" and rule != r:
+                continue
+            t = time_ms(torch, lambda r=r: decode_mod.launch(
+                q, kc, vc, lengths, force=r), iters=50)
+            routes[r] = {"ms": t["ms"], "host_ms": t["host_ms"],
+                         "covered": t["covered"]}
+        elem = q.element_size()
+        bound_ms, bound_by = _bound(
+            elem * (2 * B * H * D + 2 * Hkv * D * B * valid) + 4 * B,
+            4.0 * D * H * B * valid, dt)
+        rows.append({"shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+                               "valid": valid},
+                     "dtype": dt, "route": rule, "calls": n,
+                     "cluster": (decode_mod._cluster_for(B * Hkv, S, D)
+                                 if rule == "tensor_core" else None),
+                     "routes": routes, "ms": routes[rule]["ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "calls_x_excess_ms": n * (routes[rule]["ms"]
+                                               - bound_ms)})
+        del q, kc, vc
+    weighted = {r: sum(x["calls"] * x["routes"][r]["ms"] for x in rows
+                       if r in x["routes"])
+                for r in ("tensor_core", "cuda_core")}
+    return {"rows": rows, "weighted_ms": weighted,
+            "calls": sum(x["calls"] for x in rows)}
+
+
 def _bound(bytes_moved: float, flops, dtype_name: str):
     """(least ms, what bounds it): the bytes over the HBM rate, or the
     operations over the peak of their type.  ``flops`` is a count at
@@ -850,6 +919,13 @@ def phase_kernels(torch):
             flash.append((dt, B, 512, 16, 1, 256, 2048, 512))
             for H, Hkv in D64_SERVING:
                 flash.append((dt, B, 512, H, Hkv, 64, 0, 512))
+        # the head-dim-64 model checks' prompts (1000 positions, not a
+        # multiple of the tiles) and, in fp32, recurrentgemma-9b's (2100
+        # positions, window 2048): where the CUDA-core route runs
+        for H, Hkv in D64_SERVING:
+            flash.append((dt, 1, 1000, H, Hkv, 64, 0, 512))
+        if dt == "float32":
+            flash.append((dt, 1, 2100, 16, 1, 256, 2048, 512))
         if dt == "bfloat16":
             # the tensor-core kernel's other head dims, at GQA groups 7
             # (windowed) and 16 over a partial tile
@@ -938,9 +1014,8 @@ def phase_kernels(torch):
                                             window=window, force=r)
                 routes[r] = {"max_abs_err": errs[r],
                              **time_ms(torch, call, iters=iters)}
-                if tiny or r == "tensor_core":
-                    routes[r]["device_kernels_ms"] = _kernel_records(
-                        torch, call, iters=iters)["kernels_ms"]
+                routes[r]["device_kernels_ms"] = _kernel_records(
+                    torch, call, iters=iters)["kernels_ms"]
             extra = {}
             if tiny:
                 extra["wrapper_kernels_ms"] = _kernel_records(
@@ -1007,6 +1082,13 @@ def phase_kernels(torch):
         decode.append((dt, 3, 256, 24, 1, 64, 256, (1, split + 1, 256)))
         decode.append((dt, 3, 256, 24, 1, 256, 256, (0, split, 256)))
         decode.append((dt, 3, 1024, 17, 1, 256, 1024, (1, 520, 1024)))
+        # the tensor-core cluster kernel: lengths 0, 1, below the cluster
+        # size, mid-tile and S at every head dim in a group of 7; 4096 slots
+        # (several tiles a rank) at groups 16 and 7
+        for D in build.TENSOR_CORE_HEAD_DIMS:
+            decode.append((dt, 5, 1024, 7, 1, D, 1024, (0, 1, 5, 100, 1024)))
+        decode.append((dt, 3, 4096, 16, 1, 256, 4096, (2100, 4096, 9)))
+        decode.append((dt, 3, 4096, 7, 1, 16, 4096, (4096, 1, 3000)))
         decode.append((dt, 2, 512, 20, 2, 128, 512, (split + 1, 512)))
         for B in (1, 8):
             for S in (512, 1024):
@@ -1066,6 +1148,27 @@ def phase_kernels(torch):
                 q, kc, vc, lengths, block_kv=blk), iters=50)
             library = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask), iters=50)
+            profiled = {}
+            for r in routes_for(rule):
+                profiled[r] = _kernel_records(
+                    torch, lambda r=r: decode_mod.launch(q, kc, vc, lengths,
+                                                         force=r),
+                    KERNEL_STATS["decode_attention"])
+                # one kernel a call on the tensor cores (the cluster
+                # merges on chip); split + combine past one split on the
+                # CUDA cores.  The profiler can drop a record late in a
+                # process, so its count per call is rounded
+                want_n = (1 if r == "tensor_core" or decode_mod.num_splits(S)
+                          == 1 else 2)
+                cases.append({
+                    "kernel": "decode_attention", "shape": shape,
+                    "dtype": dt, "route": r,
+                    "check": "launches counted == profiler kernel records "
+                             f"(rounded) == {want_n} a call",
+                    "records_per_call": profiled[r]["records_per_call"],
+                    "launches_per_call": profiled[r]["launches_per_call"],
+                    "ok": profiled[r]["launches_per_call"] == want_n
+                    and round(profiled[r]["records_per_call"]) == want_n})
             timings["decode_attention"].append({
                 "shape": shape, "dtype": dt, "route": rule,
                 "max_abs_err": err, "ms": wrapper["ms"],
@@ -1073,9 +1176,7 @@ def phase_kernels(torch):
                 "routes": {r: {"max_abs_err": errs[r], **time_ms(
                     torch, lambda r=r: decode_mod.launch(
                         q, kc, vc, lengths, force=r), iters=50),
-                    "device_kernels_ms": _kernel_records(
-                        torch, lambda r=r: decode_mod.launch(
-                            q, kc, vc, lengths, force=r))["kernels_ms"]}
+                    "device_kernels_ms": profiled[r]["kernels_ms"]}
                     for r in routes_for(rule)},
                 "plain_ms": time_ms(torch, lambda: ref.decode_attention_ref(
                     q, kc, vc, lengths), iters=50)["ms"],
@@ -1250,6 +1351,16 @@ def phase_kernels(torch):
                       "check": "two chunk-scan blocks a SM",
                       "blocks_per_sm": n, "ok": n >= 2})
 
+    # clusters of the tensor-core decode the card holds at once at the
+    # serving head dims and cache lengths (and the model checks' 4096
+    # slots), for every cluster size the kernel is built for
+    occupancy["decode_attention/tensor_core"] = {
+        f"D{D}/S{S}/cluster{c}":
+            build.library("decode_attention")
+            .decode_attention_max_active_clusters(D, S, c)
+        for D in (64, 256) for S in (512, 1024, 4096)
+        for c in decode_mod.CLUSTERS}
+
     failed = [c for c in cases if not c["ok"]]
     # headline: the serving phase's largest cells in the dtype its calls
     # pass — a 512-token bf16 prefill at b=4, a bf16 decode step at b=4
@@ -1260,6 +1371,12 @@ def phase_kernels(torch):
         "flash_attention": next(
             t for t in timings["flash_attention"]
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
+            and t["shape"]["S"] == 512 and t["shape"]["H"] == 4
+            and t["shape"]["window"] == 0),
+        # the CUDA-core kernel where it runs: fp32 at row 1a's shape
+        "flash_attention/fp32": next(
+            t for t in timings["flash_attention"]
+            if t["dtype"] == "float32" and t["shape"]["B"] == 4
             and t["shape"]["S"] == 512 and t["shape"]["H"] == 4
             and t["shape"]["window"] == 0),
         # attn-tiny's largest serving cell: the short route's path

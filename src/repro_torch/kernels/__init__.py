@@ -3,10 +3,12 @@
 * flash_attention — prefill attention (tiled online softmax), CUDA:
   tensor cores (wgmma fed by TMA) for bf16, a warp per (batch, head) for fp32
   with at most 16 rows and keys (the short route), CUDA cores for the
-  rest of fp32 and head dim 8
-* decode_attention — flash-decode against a KV cache in 64-row splits
-  and a combine, CUDA: tensor cores (mma.sync) for bf16 with GQA groups
-  up to 16, CUDA cores for fp32, head dim 8 and larger groups
+  rest of fp32 and head dim 8 (register-tiled, two blocks a query tile)
+* decode_attention — flash-decode against a KV cache, CUDA: tensor cores
+  (mma.sync) for bf16 with GQA groups up to 16 as one launch (a cluster
+  of blocks a (batch row, KV head), merged in distributed shared
+  memory), CUDA cores for fp32, head dim 8 and larger groups (64-row
+  splits and a combine)
 * ssd_scan — Mamba2 chunked SSD scan with its final state, CUDA: three
   tensor-core passes for bf16, three CUDA-core passes for fp32
 * rglru_scan — RG-LRU linear recurrence over time, CUDA: one chunked

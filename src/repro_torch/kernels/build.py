@@ -63,8 +63,9 @@ class KernelStats:
     ``"chunked"`` for the RG-LRU scan, which has one); ``launches`` is
     their sum.
     ``calls_by_shape`` counts the launching calls by the shape key a
-    wrapper passes (the SSD scan's dtype and dimensions), so a caller can
-    weigh per-shape kernel times by the mix a path really ran.
+    wrapper passes (the SSD scan's and decode's dtype and dimensions), so
+    a caller can weigh per-shape kernel times by the mix a path really
+    ran.
     ``cpu_calls`` counts calls that took the plain PyTorch version
     because the tensors lay on the CPU.  Updates are locked: serving
     runners call the wrappers from several threads.
@@ -160,6 +161,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.decode_attention_fwd.restype = i
         lib.decode_attention_smem_bytes.argtypes = [i, i, i, i]
         lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.decode_attention_max_active_clusters.argtypes = [i, i, i]
+        lib.decode_attention_max_active_clusters.restype = i
     elif name == "ssd_scan":
         lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                      i, i, i, i, i, i, p]

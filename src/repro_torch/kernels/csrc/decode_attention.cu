@@ -5,53 +5,80 @@
 // caches (B, S, Hkv, D) with cache positions >= lengths[b] masked, online
 // softmax in fp32, fp32 or bf16 storage.
 //
-// Design, both routes.  The TPU kernel walks the cache length as a
-// sequential grid axis, one batch row per core.  On an H100 that would
-// leave all but B of 132 SMs idle, so the cache length is split
-// (flash-decoding): one block per (split, KV head, batch row), each split
-// kSplit = 64 cache rows long, so a block's chain is one tile.  A block
-// keeps the `rep = H / Hkv` query heads of its GQA group together, so each
-// K/V row is read from device memory once for the whole group, as the TPU
-// kernel's (Hkv, rep, D) reshape does.  A split that starts at or past
-// lengths[b] exits before loading anything.  Each live split writes its
-// partial (acc, m, l) to a per-call workspace and `combine_kernel` merges
-// them with the algebra the online softmax uses within one (weights
-// exp(m_s - max m)); with one split the split kernel writes the output
-// itself.  The mask constant is the TPU kernel's finite -0.7 * FLT_MAX
-// and l is clamped at 1e-30, as there, so a row with no valid position
-// gets 0, as from the TPU kernel.
+// Design.  The TPU kernel walks the cache length as a sequential grid
+// axis, one batch row per core.  On an H100 that would leave all but B of
+// 132 SMs idle, so several blocks share the cache of one (KV head, batch
+// row) and their online softmaxes are merged with the algebra the online
+// softmax uses within one (weights exp(m_s - max m)).  A block keeps the
+// `rep = H / Hkv` query heads of its GQA group together, so each K/V row
+// is read from device memory once for the whole group, as the TPU
+// kernel's (Hkv, rep, D) reshape does.  The mask constant is the TPU
+// kernel's finite -0.7 * FLT_MAX and l is clamped at 1e-30, as there, so
+// a row with no valid position gets 0, as from the TPU kernel.
 //
 // What bounds it on an H100.  A decode step reads each valid cache row
-// once: 2 tensors * Hkv * D * bytes per row, e.g. 2.6 MB for B = 8 rows
-// of mixed length (sum 5,149) at D = 256 in bf16 -- under 1 us at 3.35
-// TB/s, less than a kernel launch.  So the device time is latency: one
-// block's chain of dependent steps, plus the combine's.
+// once: 2 tensors * Hkv * D * bytes per row, e.g. 2.1 MB for B = 4 rows of
+// 520 at D = 256 in bf16 -- under 1 us at 3.35 TB/s, less than a kernel
+// launch.  So the device time is latency: the launch, one block's chain
+// of dependent steps, and every hand-off between blocks.
 //
 // Two routes, chosen by dtype, head dim and group before the launch
 // (never after a failure): `decode_attention_fwd`'s `route` argument is
 // 0 (by shape), 1 (CUDA cores) or 2 (tensor cores), and it returns -1
 // where a forced route cannot take the shape.
 //
-// Tensor-core route (bf16, D = 16..256, rep <= 16): `decode_tc_kernel`.
-// The block issues 16-byte cp.async copies of Q, its K tile and its V tile at once (V in a second group,
-// so the scores run while V lands); K and V stay bf16 in shared memory
-// with rows padded by 16 bytes so ldmatrix's row reads hit distinct
-// banks.  S = Q K^T runs on mma.sync m16n8k16 with the group's query
+// Tensor-core route (bf16, D = 16..256, rep <= 16): `decode_tc_kernel`,
+// one launch.  The C blocks of a thread-block cluster take one (KV head,
+// batch row); the wrapper picks C in {1, 2, 4, 8, 16} (8, or 16 where 8
+// ranks would loop over tiles, halved while the card cannot hold every
+// cluster at once: cudaOccupancyMaxActiveClusters).  Each block reads
+// lengths[b] on the device, clamps it to S, and takes its rank's share of
+// the valid rows (`rank_rows`: the 16-row pieces dealt out evenly, so no
+// block reads padding and at 520 valid rows and C = 8 none reads more
+// than 80).  All 256 threads copy Q (issued before the length is read, so
+// the two trips to memory overlap), then the rank's K rows, then its V
+// rows, by 16-byte cp.async in two groups, so the scores run while V
+// lands; rows are padded by 16 bytes so ldmatrix's row reads hit distinct
+// banks.  (Bulk copies on an mbarrier, one a row, or one a tile into
+// unpadded rows, whose ldmatrix reads then conflict 8-way, both measured
+// slower on an H100.)  The products are those of the mma.sync kernel this
+// one replaced: S = Q K^T on mma.sync m16n8k16 with the group's query
 // heads as the 16 rows (rep < 16 pads with zero rows: free work in a
-// latency-bound call); each of the 8 warps takes 8 keys, and the row max
-// and sum cross warps through a few floats of shared memory.  P goes to
-// shared memory as bf16 and is the A operand of O = P V, with V read by
-// ldmatrix.trans and the warps splitting D.
+// latency-bound call), warp w taking the 8-key pieces w and w + 8; the
+// row max and sum cross warps through a few floats of shared memory; P is
+// rounded to bf16 into shared memory and is the A operand of O = P V,
+// with V read by ldmatrix.trans and the warps splitting D.  wgmma's 64
+// rows would be mostly padding.  A rank's range longer than its
+// shared-memory tile (at most 128 rows: the model checks' 2048 and 4096
+// slots) loops over tiles with the online softmax.  The merge goes
+// through distributed shared memory in one hand-off: each rank pushes
+// (st.shared::cluster) its acc at the D / C columns rank r merges into
+// rank r's shared memory, and its m and l of every row to every rank;
+// one cluster barrier (release / acquire); then rank r weighs the ranks
+// in rank order (so the result does not depend on timing) by exp(m_s -
+// max m) and writes its columns of the output from its own shared memory,
+// so no block reads another's memory and none has to wait for its peers
+// before it exits.  The first half of a barrier arrived at the start and
+// waited on just before the first push makes sure every block of the
+// cluster has started.  A rank with no rows pushes acc = 0, m =
+// -0.7 FLT_MAX and l = 0, so its weight is 0.  No workspace, no second
+// launch, no counter to zero.  Attributes (shared memory, the
+// non-portable cluster size of 16) are set once per device; a refused
+// cluster launch returns its cudaError_t.
 //
 // CUDA-core route (fp32, head dim 8, groups above 16, forced bf16):
-// `decode_kernel`.  fp32 stays off the tensor cores because TF32 (~1e-3)
-// misses its 2e-5 tolerance, head dim 8 because mma needs a depth of 16.
-// The route is bound like the other by latency: at fp32 a split moves
-// 2 * 64 * D * 4 bytes (128 KB at D = 256) into one SM, and its arithmetic
-// (4 * rep * 64 * D flops) is a few hundred cycles of one SM's FMAs, so
-// what counts is the chain of one block: no serial tiles, no long chains
-// of dependent FMAs, no idle warps.  The kernel takes the tensor-core
-// kernel's layout with fp32 FMAs in place of mma:
+// `decode_kernel`, one block per (split, KV head, batch row), each split
+// kSplit = 64 cache rows long, so a block's chain is one tile; a split
+// that starts at or past lengths[b] exits before loading anything.  Each
+// live split writes its partial (acc, m, l) to a per-call workspace and
+// `combine_kernel` merges them; with one split the split kernel writes
+// the output itself.  fp32 stays off the tensor cores because TF32
+// (~1e-3) misses its 2e-5 tolerance, head dim 8 because mma needs a depth
+// of 16.  The route is bound like the other by latency: at fp32 a split
+// moves 2 * 64 * D * 4 bytes (128 KB at D = 256) into one SM, and its
+// arithmetic (4 * rep * 64 * D flops) is a few hundred cycles of one SM's
+// FMAs, so what counts is the chain of one block: no serial tiles, no
+// long chains of dependent FMAs, no idle warps:
 //   * the split's whole K tile, then its V tile, are copied with 16-byte
 //     cp.async in two commit groups, so the scores run while V lands;
 //     rows past the split's valid length are not copied (their scores
@@ -78,17 +105,23 @@
 // What is left of a call at lm-tiny's shapes is one round trip to device
 // memory and the chain of four barriers between copy, scores, softmax,
 // P V and the partial sums.
+//
+// The combine (CUDA-core route only): one block per (row of the group, KV
+// head, batch row), threads along D.  It reads each live split's m and l
+// once into shared memory, computes each split's weight once, and sums
+// the partials with independent 16-byte loads.  The tensor-core route
+// folds this merge into its one launch through the cluster's distributed
+// shared memory; before Hopper's clusters that needed a counter zeroed for
+// every call (the last block of a (b, hk) to finish would combine), which
+// is a launch of its own.
 
-// The combine, both routes: one block per (row of the group, KV head,
-// batch row), threads along D.  It reads each live split's m and l once
-// into shared memory, computes each split's weight once, and sums the
-// partials with independent 16-byte loads.  (Folding it into the split
-// kernel -- the last block of a (b, hk) to finish combines -- needs a
-// counter zeroed for every call, which is a launch of its own.)
+#include <atomic>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -102,6 +135,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;         // CUDA-core: query heads per register block
 constexpr int kTcRows = 16;      // mma rows: the group, zero-padded
 constexpr int kTcMaxGroup = 16;
+constexpr int kTcMaxTile = 128;  // rows a tensor-core rank holds at once
 constexpr int kCombineThreads = 64;
 constexpr int kMaxCombineSmem = 48 * 1024;
 
@@ -156,14 +190,6 @@ size_t smem_bytes(int rep, int D, size_t elem) {
   const size_t rp = (size_t)(rep + kRows - 1) / kRows * kRows;
   return elem * 2 * kSplit * D +
          sizeof(float) * ((size_t)rep * D + rp * kSplit + 2 * (size_t)rep);
-}
-
-size_t tc_smem_bytes(int D) {
-  // q (16 x D+8), k and v (64 x D+8), p (16 x 64+8) bf16; row max and
-  // row sum of each warp (2 x 8 x 16 floats)
-  return 2 * ((size_t)kTcRows * (D + 8) + 2 * (size_t)kSplit * (D + 8) +
-              kTcRows * (kSplit + 8)) +
-         sizeof(float) * 2 * kWarps * kTcRows;
 }
 
 // One block: split blockIdx.x of KV head blockIdx.y of batch row
@@ -392,198 +418,331 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
 }
 
-// Tensor-core split kernel (bf16): one 64-row split of one (KV head,
-// batch row), the group's rep query heads as the 16 mma rows.  Same
-// outputs as decode_kernel.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// Tensor-core route (bf16): one launch, C blocks (a thread-block cluster)
+// per (KV head, batch row).  Rank r of the cluster takes the cache rows
+// rank_rows gives it, in tiles of at most `tile` rows; the cluster then
+// merges the ranks' softmax states in distributed shared memory.
+
+// The cache rows [lo, hi) of rank r when `len` rows are valid: the
+// ceil(len / 16) 16-row pieces dealt out evenly in rank order, so no rank
+// reads past the length and none holds more than ceil(pieces / C) pieces.
+// (decode_attention.rank_rows mirrors it.)
+__host__ __device__ inline void rank_rows(int len, int C, int r, int& lo,
+                                          int& hi) {
+  const int pieces = (len + 15) / 16;
+  const int end = 16 * ((r + 1) * pieces / C);
+  lo = 16 * (r * pieces / C);
+  hi = end < len ? end : len;
+}
+
+// Rows a rank holds in shared memory at once: its most rows at S, at most
+// kTcMaxTile (a longer range loops over tiles).
+__host__ __device__ inline int tc_tile_rows(int S, int C) {
+  const int per = ((S + 15) / 16 + C - 1) / C * 16;
+  return per < kTcMaxTile ? per : kTcMaxTile;
+}
+
+// Byte offsets of the tensor-core kernel's shared memory: Q (16 rows), the
+// K and V tiles, P (16 x tile), each warp's row max and row sum, and what
+// the cluster's ranks push here: each rank's m and l of every row and its
+// acc at this rank's D / C columns.  Rows of Q, K and V are padded by 16
+// bytes so ldmatrix's eight row reads hit distinct banks.
+struct TcSmem {
+  int q, k, v, p, red_m, red_l, in_m, in_l, in_acc, total;
+  __host__ __device__ TcSmem(int D, int tile, int C) {
+    const int rs = (D + 8) * 2;
+    q = 0;
+    k = q + kTcRows * rs;
+    v = k + tile * rs;
+    p = v + tile * rs;
+    red_m = p + kTcRows * (tile + 8) * 2;
+    red_l = red_m + kWarps * kTcRows * 4;
+    in_m = red_l + kWarps * kTcRows * 4;
+    in_l = in_m + C * kTcRows * 4;
+    in_acc = in_l + C * kTcRows * 4;
+    total = in_acc + kTcRows * D * 4;     // C ranks x 16 rows x D / C
+  }
+};
+
+template <int D, int C>
+__global__ void __launch_bounds__(kThreads, 1)
 decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                  const bf16* __restrict__ vc, const int* __restrict__ lengths,
-                 bf16* __restrict__ o, float* __restrict__ ws_acc,
-                 float* __restrict__ ws_ml, int S, int H, int Hkv,
+                 bf16* __restrict__ o, int S, int H, int Hkv, int tile,
                  float scale) {
-  constexpr int RS = D + 8;               // K/V/Q row stride (elements)
-  constexpr int PS = kSplit + 8;          // P row stride
+  constexpr int RS = D + 8;               // Q/K/V row stride (elements)
   constexpr int CH = D / 8;               // 16-byte chunks per row
   constexpr int NPAIR = D / 16;           // 16-column output slabs
   constexpr int PPW = (NPAIR + kWarps - 1) / kWarps;  // slabs per warp
+  constexpr int DC = D / C;               // output columns a rank merges
+  static_assert(DC >= 2 && DC % 2 == 0, "a rank merges column pairs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kTcRows * RS;
-  bf16* vs = ks + kSplit * RS;
-  bf16* ps = vs + kSplit * RS;
-  float* red_m = reinterpret_cast<float*>(ps + kTcRows * PS);
-  float* red_l = red_m + kWarps * kTcRows;
+  const TcSmem L(D, tile, C);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw + L.q);
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw + L.k);
+  bf16* vs = reinterpret_cast<bf16*>(smem_raw + L.v);
+  bf16* ps = reinterpret_cast<bf16*>(smem_raw + L.p);
+  float* red_m = reinterpret_cast<float*>(smem_raw + L.red_m);
+  float* red_l = reinterpret_cast<float*>(smem_raw + L.red_l);
+  float* in_m = reinterpret_cast<float*>(smem_raw + L.in_m);
+  float* in_l = reinterpret_cast<float*>(smem_raw + L.in_l);
+  float* in_acc = reinterpret_cast<float*>(smem_raw + L.in_acc);
+  const int PS = tile + 8;                // P row stride
 
-  const int split = blockIdx.x;
+  // every block of the cluster has started before any writes to another's
+  // shared memory: arrive now, wait just before the first such write
+  hopper::cluster_arrive_relaxed();
+  const int rank = (int)hopper::cluster_rank();
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / Hkv;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-
-  const int start = split * kSplit;
-  const int end = min(start + kSplit, min(lengths[b], S));
   const size_t q_off = ((size_t)b * H + (size_t)hk * rep) * D;
-  if (start >= end) {
-    if (ws_acc == nullptr)              // one split and an empty row: 0
-      for (int i = tid; i < rep * D; i += kThreads)
-        o[q_off + i] = __float2bfloat16(0.f);
-    return;
-  }
+  const size_t kv_stride = (size_t)Hkv * D;
+  const bf16* kb = kc + ((size_t)b * S * Hkv + hk) * D;
+  const bf16* vb = vc + ((size_t)b * S * Hkv + hk) * D;
 
-  // Q and K (group 0), then V (group 1); rows past the group or past
-  // `end` are zero-filled, so masked keys meet V rows of 0
+  // Q first (rows past the group zero-filled), so its trip to memory
+  // overlaps the length's
   for (int i = tid; i < kTcRows * CH; i += kThreads) {
     const int r = i / CH, c = i % CH;
     const bool ok = r < rep;
     mma::cp_async16(qs + r * RS + c * 8, q + q_off + (ok ? r * D + c * 8 : 0),
                     ok ? 16 : 0);
   }
-  const size_t kv_stride = (size_t)Hkv * D;
-  const bf16* kb = kc + ((size_t)b * S * Hkv + hk) * D;
-  const bf16* vb = vc + ((size_t)b * S * Hkv + hk) * D;
-  for (int i = tid; i < kSplit * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = start + r < end;
-    mma::cp_async16(ks + r * RS + c * 8,
-                    kb + (size_t)(ok ? start + r : start) * kv_stride + c * 8,
-                    ok ? 16 : 0);
-  }
-  mma::cp_async_commit();
-  for (int i = tid; i < kSplit * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = start + r < end;
-    mma::cp_async16(vs + r * RS + c * 8,
-                    vb + (size_t)(ok ? start + r : start) * kv_stride + c * 8,
-                    ok ? 16 : 0);
-  }
-  mma::cp_async_commit();
-  mma::cp_async_wait<1>();
-  __syncthreads();                        // Q and K have landed
+  const int len = max(0, min(lengths[b], S));
+  int lo, hi;
+  rank_rows(len, C, rank, lo, hi);
+  // rows [t0, t0 + n) by 16-byte cp.async: K (with Q) in one group, V in
+  // the next, so the scores run while V lands; rows n .. 16 ceil(n / 16)
+  // are zero-filled (P is 0 there, and 0 * V must not meet stale bits)
+  auto issue = [&](int t0, int n) {
+    const int n16 = (n + 15) / 16 * 16;
+    for (int i = tid; i < n16 * CH; i += kThreads) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = r < n;
+      mma::cp_async16(ks + r * RS + c * 8,
+                      kb + (size_t)(t0 + (ok ? r : 0)) * kv_stride + c * 8,
+                      ok ? 16 : 0);
+    }
+    mma::cp_async_commit();
+    for (int i = tid; i < n16 * CH; i += kThreads) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = r < n;
+      mma::cp_async16(vs + r * RS + c * 8,
+                      vb + (size_t)(t0 + (ok ? r : 0)) * kv_stride + c * 8,
+                      ok ? 16 : 0);
+    }
+    mma::cp_async_commit();
+  };
+  if (lo < hi) issue(lo, min(tile, hi - lo));
+  mma::cp_async_commit();                 // Q alone, when the rank has no rows
 
-  // S = Q K^T: warp w takes keys 8w .. 8w + 7; two accumulators halve
-  // the dependent mma chain
-  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4], bb[2];
-    mma::ldsm_x4(a, qs + (lane % 16) * RS + kk * 16 + (lane / 16) * 8);
-    mma::ldsm_x2(bb, ks + (warp * 8 + lane % 8) * RS + kk * 16 +
-                         ((lane / 8) % 2) * 8);
-    if (kk % 2)
-      mma::mma_bf16(s1, a, bb[0], bb[1]);
-    else
-      mma::mma_bf16(s0, a, bb[0], bb[1]);
-  }
-  // this lane's scores: rows g (e = 0, 1) and g + 8 (e = 2, 3), keys
-  // start + 8 warp + 2t + (e & 1)
-  float s[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int key = start + warp * 8 + 2 * t + (e & 1);
-    s[e] = key < end ? (s0[e] + s1[e]) * scale : kNegInf;
-  }
-  float mx[2] = {fmaxf(s[0], s[1]), fmaxf(s[2], s[3])};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-  if (t == 0) {
-    red_m[warp * kTcRows + g] = mx[0];
-    red_m[warp * kTcRows + g + 8] = mx[1];
-  }
-  __syncthreads();
-  float m[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    m[0] = fmaxf(m[0], red_m[w * kTcRows + g]);
-    m[1] = fmaxf(m[1], red_m[w * kTcRows + g + 8]);
-  }
-  const float p0 = expf(s[0] - m[0]), p1 = expf(s[1] - m[0]);
-  const float p2 = expf(s[2] - m[1]), p3 = expf(s[3] - m[1]);
-  float rs[2] = {p0 + p1, p2 + p3};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-  }
-  if (t == 0) {
-    red_l[warp * kTcRows + g] = rs[0];
-    red_l[warp * kTcRows + g + 8] = rs[1];
-  }
-  *reinterpret_cast<uint32_t*>(ps + g * PS + warp * 8 + 2 * t) =
-      mma::pack_bf16(p0, p1);
-  *reinterpret_cast<uint32_t*>(ps + (g + 8) * PS + warp * 8 + 2 * t) =
-      mma::pack_bf16(p2, p3);
-  mma::cp_async_wait<0>();
-  __syncthreads();                        // V, P and the row sums
-
-  // O = P V: warp w takes the 16-column slabs w, w + 8, ...
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
   float acc[PPW][2][4];
 #pragma unroll
   for (int j = 0; j < PPW; ++j)
 #pragma unroll
     for (int n = 0; n < 2; ++n)
       acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.f;
+  for (int t0 = lo; t0 < hi; t0 += tile) {
+    const int n = min(tile, hi - t0);
+    const int n16 = (n + 15) / 16;
+    const int end = t0 + n;
+    mma::cp_async_wait<2>();              // Q and K (an empty group follows)
+    __syncthreads();
+
+    // S = Q K^T: warp w takes the 8-key n-tiles w and w + 8; two
+    // accumulators each halve the dependent mma chain
+    float sa[2][2][4];
 #pragma unroll
-  for (int kk = 0; kk < kSplit / 16; ++kk) {
-    uint32_t pa[4];
-    mma::ldsm_x4(pa, ps + (lane % 16) * PS + kk * 16 + (lane / 16) * 8);
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < PPW; ++j) {
-      const int slab = warp + j * kWarps;
-      if (slab < NPAIR) {
-        uint32_t bb[4];
-        mma::ldsm_x4_t(bb, vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
-                                    RS + slab * 16 + (lane / 16) * 8);
-        mma::mma_bf16(acc[j][0], pa, bb[0], bb[1]);
-        mma::mma_bf16(acc[j][1], pa, bb[2], bb[3]);
+      for (int h = 0; h < 2; ++h)
+        sa[j][h][0] = sa[j][h][1] = sa[j][h][2] = sa[j][h][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      mma::ldsm_x4(a, qs + (lane % 16) * RS + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int nt = warp + 8 * j;
+        if (nt < 2 * n16) {
+          uint32_t bb[2];
+          mma::ldsm_x2(bb, ks + (nt * 8 + lane % 8) * RS + kk * 16 +
+                               ((lane / 8) % 2) * 8);
+          mma::mma_bf16(sa[j][kk % 2], a, bb[0], bb[1]);
+        }
       }
     }
-  }
-
-  float l[2] = {0.f, 0.f};
+    // this lane's scores: rows g (e = 0, 1) and g + 8 (e = 2, 3), keys
+    // t0 + 8 nt + 2t + (e & 1)
+    float s[2][4];
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    l[0] += red_l[w * kTcRows + g];
-    l[1] += red_l[w * kTcRows + g + 8];
+    for (int j = 0; j < 2; ++j) {
+      const int nt = warp + 8 * j;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t0 + nt * 8 + 2 * t + (e & 1);
+        s[j][e] = nt < 2 * n16 && key < end
+                      ? (sa[j][0][e] + sa[j][1][e]) * scale
+                      : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if (t == 0) {
+      red_m[warp * kTcRows + g] = mx[0];
+      red_m[warp * kTcRows + g + 8] = mx[1];
+    }
+    __syncthreads();
+    float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      m_new[0] = fmaxf(m_new[0], red_m[w * kTcRows + g]);
+      m_new[1] = fmaxf(m_new[1], red_m[w * kTcRows + g + 8]);
+    }
+    const float alpha[2] = {expf(m_run[0] - m_new[0]),
+                            expf(m_run[1] - m_new[1])};
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int nt = warp + 8 * j;
+      if (nt < 2 * n16) {
+        const float p0 = expf(s[j][0] - m_new[0]);
+        const float p1 = expf(s[j][1] - m_new[0]);
+        const float p2 = expf(s[j][2] - m_new[1]);
+        const float p3 = expf(s[j][3] - m_new[1]);
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        *reinterpret_cast<uint32_t*>(ps + g * PS + nt * 8 + 2 * t) =
+            mma::pack_bf16(p0, p1);
+        *reinterpret_cast<uint32_t*>(ps + (g + 8) * PS + nt * 8 + 2 * t) =
+            mma::pack_bf16(p2, p3);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    }
+    if (t == 0) {
+      red_l[warp * kTcRows + g] = rs[0];
+      red_l[warp * kTcRows + g + 8] = rs[1];
+    }
+    mma::cp_async_wait<1>();              // V
+    __syncthreads();                      // V, P and the row sums
+
+    float l_tile[2] = {0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      l_tile[0] += red_l[w * kTcRows + g];
+      l_tile[1] += red_l[w * kTcRows + g + 8];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = l_run[r] * alpha[r] + l_tile[r];
+      m_run[r] = m_new[r];
+    }
+    // O = alpha O + P V: warp w takes the 16-column slabs w, w + 8, ...
+#pragma unroll
+    for (int j = 0; j < PPW; ++j)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        acc[j][nn][0] *= alpha[0];
+        acc[j][nn][1] *= alpha[0];
+        acc[j][nn][2] *= alpha[1];
+        acc[j][nn][3] *= alpha[1];
+      }
+    for (int kk = 0; kk < n16; ++kk) {
+      uint32_t pa[4];
+      mma::ldsm_x4(pa, ps + (lane % 16) * PS + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < PPW; ++j) {
+        const int slab = warp + j * kWarps;
+        if (slab < NPAIR) {
+          uint32_t bb[4];
+          mma::ldsm_x4_t(bb, vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) *
+                                      RS + slab * 16 + (lane / 16) * 8);
+          mma::mma_bf16(acc[j][0], pa, bb[0], bb[1]);
+          mma::mma_bf16(acc[j][1], pa, bb[2], bb[3]);
+        }
+      }
+    }
+    if (t0 + tile < hi) {
+      __syncthreads();                    // every warp is done with the tile
+      issue(t0 + tile, min(tile, hi - t0 - tile));
+      mma::cp_async_commit();
+    }
   }
-  const size_t part = (size_t)(b * Hkv + hk) * gridDim.x + split;
+  mma::cp_async_wait<0>();
+
+  // push this rank's state to the rank that merges each column: its acc at
+  // those columns, and to every rank its m and l; a rank with no rows
+  // pushes acc = 0, m = -0.7 FLT_MAX, l = 0, so its weight below is 0
+  hopper::cluster_wait();                 // every block has started
 #pragma unroll
   for (int j = 0; j < PPW; ++j) {
     const int slab = warp + j * kWarps;
     if (slab >= NPAIR) continue;
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      const int col = slab * 16 + n * 8 + 2 * t;
+    for (int nn = 0; nn < 2; ++nn) {
+      const int col = slab * 16 + nn * 8 + 2 * t;
+      const int owner = col / DC;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {       // rows g, g + 8
         const int r = g + 8 * h;
-        if (r >= rep) continue;
-        const float x0 = acc[j][n][2 * h], x1 = acc[j][n][2 * h + 1];
-        if (ws_acc == nullptr) {
-          const float inv = 1.f / fmaxf(l[h], 1e-30f);
-          *reinterpret_cast<uint32_t*>(o + q_off + r * D + col) =
-              mma::pack_bf16(x0 * inv, x1 * inv);
-        } else {
-          *reinterpret_cast<float2*>(ws_acc + (part * rep + r) * D + col) =
-              make_float2(x0, x1);
-        }
+        if (r < rep)
+          hopper::peer_store2(
+              hopper::peer_addr(in_acc + (rank * kTcRows + r) * DC +
+                                    col - owner * DC, owner),
+              make_float2(acc[j][nn][2 * h], acc[j][nn][2 * h + 1]));
       }
     }
   }
-  if (ws_acc != nullptr && warp == 0 && t == 0) {
+  if (warp == 0 && t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = g + 8 * h;
-      if (r < rep) {
-        ws_ml[(part * rep + r) * 2] = m[h];
-        ws_ml[(part * rep + r) * 2 + 1] = l[h];
-      }
+      if (r < rep)
+        for (int dst = 0; dst < C; ++dst) {
+          hopper::peer_store(
+              hopper::peer_addr(in_m + rank * kTcRows + r, dst), m_run[h]);
+          hopper::peer_store(
+              hopper::peer_addr(in_l + rank * kTcRows + r, dst), l_run[h]);
+        }
     }
+  }
+  hopper::cluster_sync();                 // every push has landed
+
+  // this rank's columns [rank D / C, (rank + 1) D / C) of every row,
+  // merged over the ranks in rank order with weights exp(m_s - max m);
+  // nothing reads another block's memory from here on
+  for (int i = tid; i < rep * (DC / 2); i += kThreads) {
+    const int r = i / (DC / 2), c = 2 * (i % (DC / 2));
+    float mm = kNegInf;
+#pragma unroll
+    for (int sr = 0; sr < C; ++sr) mm = fmaxf(mm, in_m[sr * kTcRows + r]);
+    float l = 0.f, x0 = 0.f, x1 = 0.f;
+#pragma unroll
+    for (int sr = 0; sr < C; ++sr) {
+      const float w = expf(in_m[sr * kTcRows + r] - mm);
+      const float2 a = *reinterpret_cast<const float2*>(
+          in_acc + (sr * kTcRows + r) * DC + c);
+      l = fmaf(in_l[sr * kTcRows + r], w, l);
+      x0 = fmaf(a.x, w, x0);
+      x1 = fmaf(a.y, w, x1);
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    *reinterpret_cast<uint32_t*>(o + q_off + r * D + rank * DC + c) =
+        mma::pack_bf16(x0 * inv, x1 * inv);
   }
 }
 
@@ -658,24 +817,6 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_tc(const void* q, const void* k, const void* v, const int* lengths,
-              void* o, float* ws_acc, float* ws_ml, int n_split, int B,
-              int S, int H, int Hkv, float scale, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(D);
-  auto kernel = decode_tc_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(n_split, Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), lengths, static_cast<bf16*>(o), ws_acc,
-      ws_ml, S, H, Hkv, scale);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
                const int* lengths, void* o, float* wa, float* wm,
@@ -692,16 +833,129 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// The tensor-core kernel's attributes, set once per device: its largest
+// shared memory and, for clusters of 16, the non-portable cluster size.
+template <int D, int C>
+cudaError_t tc_attributes() {
+  static std::atomic<unsigned long long> done{0};   // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(decode_tc_kernel<D, C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           TcSmem(D, kTcMaxTile, C).total);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(decode_tc_kernel<D, C>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+// The launch of C blocks a (KV head, batch row) as one cluster each.
+template <int D, int C>
+cudaLaunchConfig_t tc_config(int B, int S, int Hkv, cudaStream_t stream,
+                             cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, Hkv, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = TcSmem(D, tc_tile_rows(S, C), C).total;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int D, int C>
+int launch_tc(const void* q, const void* k, const void* v, const int* lengths,
+              void* o, int B, int S, int H, int Hkv, float scale,
+              cudaStream_t stream) {
+  cudaError_t e = tc_attributes<D, C>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tc_config<D, C>(B, S, Hkv, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, decode_tc_kernel<D, C>,
+                         static_cast<const bf16*>(q),
+                         static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), lengths,
+                         static_cast<bf16*>(o), S, H, Hkv,
+                         tc_tile_rows(S, C), scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Clusters of the tensor-core kernel the card can hold at once at S, or a
+// negated cudaError_t.
+template <int D, int C>
+int tc_max_clusters(int S) {
+  cudaError_t e = tc_attributes<D, C>();
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tc_config<D, C>(1, S, 1, nullptr, &attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, decode_tc_kernel<D, C>, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// The tensor-core kernel at head dim D and cluster size C, where a rank
+// merges at least a column pair (D / C >= 2); -1 elsewhere.
+template <int D, int C>
+int launch_tc_if(const void* q, const void* k, const void* v,
+                 const int* lengths, void* o, int B, int S, int H, int Hkv,
+                 float scale, cudaStream_t s) {
+  if constexpr (D / C >= 2)
+    return launch_tc<D, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
+  return -1;
+}
+
+template <int C>
 int dispatch_tc(int D, const void* q, const void* k, const void* v,
-                const int* lengths, void* o, float* wa, float* wm,
-                int n_split, int B, int S, int H, int Hkv, float scale,
-                cudaStream_t s) {
+                const int* lengths, void* o, int B, int S, int H, int Hkv,
+                float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_tc<16>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
-    case 32: return launch_tc<32>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
-    case 64: return launch_tc<64>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
-    case 128: return launch_tc<128>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
-    case 256: return launch_tc<256>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 16: return launch_tc_if<16, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
+    case 32: return launch_tc_if<32, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
+    case 64: return launch_tc_if<64, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
+    case 128: return launch_tc_if<128, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
+    case 256: return launch_tc_if<256, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
+    default: return -1;
+  }
+}
+
+template <int D, int C>
+int max_clusters_if(int S) {
+  if constexpr (D / C >= 2) return tc_max_clusters<D, C>(S);
+  return -1;
+}
+
+template <int C>
+int dispatch_max_clusters(int D, int S) {
+  switch (D) {
+    case 16: return max_clusters_if<16, C>(S);
+    case 32: return max_clusters_if<32, C>(S);
+    case 64: return max_clusters_if<64, C>(S);
+    case 128: return max_clusters_if<128, C>(S);
+    case 256: return max_clusters_if<256, C>(S);
+    default: return -1;
+  }
+}
+
+// Either of the two above for a cluster size given at run time: 1, 2, 4,
+// 8 or 16.
+template <typename F>
+int by_cluster(int cluster, F&& f) {
+  switch (cluster) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
     default: return -1;
   }
 }
@@ -718,20 +972,32 @@ int launch_combine(const float* wa, const float* wm, const int* lengths,
 
 }  // namespace
 
-// Bytes of shared memory one split block of `route` (1 CUDA cores, 2
-// tensor cores) needs for dtype (0 fp32, 1 bf16); the wrapper refuses a
-// group that does not fit the card's 227 KB.
+// Bytes of shared memory one block of `route` (1 CUDA cores, 2 tensor
+// cores: its largest tile, at a cluster of 16) needs for dtype (0 fp32, 1
+// bf16); the wrapper refuses a group that does not fit the card's 227 KB.
 extern "C" long long decode_attention_smem_bytes(int rep, int D, int dtype,
                                                  int route) {
-  return (long long)(route == 2 ? tc_smem_bytes(D)
+  return (long long)(route == 2 ? TcSmem(D, kTcMaxTile, 16).total
                                 : smem_bytes(rep, D, dtype == 1 ? 2 : 4));
+}
+
+// Clusters of `cluster` (1, 2, 4, 8 or 16; at most D / 2) tensor-core
+// blocks the card can hold at once at head dim D and S cache slots
+// (cudaOccupancyMaxActiveClusters), or -1 / a negated cudaError_t.
+extern "C" int decode_attention_max_active_clusters(int D, int S,
+                                                    int cluster) {
+  return by_cluster(cluster, [&](auto c) {
+    return dispatch_max_clusters<decltype(c)::value>(D, S);
+  });
 }
 
 // Returns 0 on success, the cudaError_t of a refused launch, or -1 for a
 // shape / dtype / route this library has no kernel for.  dtype: 0 fp32,
-// 1 bf16; route: 0 by shape, 1 CUDA cores, 2 tensor cores.  n_split must
-// be ceil(S / 64); ws holds B * Hkv * n_split * rep * (D + 2) floats
-// (acc, then m and l; unused when n_split == 1).
+// 1 bf16; route: 0 by shape, 1 CUDA cores, 2 tensor cores.  On the CUDA
+// cores n_split must be ceil(S / 64) and ws hold B * Hkv * n_split * rep *
+// (D + 2) floats (acc, then m and l; unused when n_split == 1).  On the
+// tensor cores n_split is the cluster size (1, 2, 4, 8 or 16, at most
+// D / 2) and ws is null: the one launch needs no workspace.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lengths,
                                     void* o, void* ws, int n_split, int B,
@@ -741,25 +1007,25 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 ||
-      n_split != (S + kSplit - 1) / kSplit ||
-      2 * n_split * sizeof(float) > (size_t)kMaxCombineSmem ||
       (dtype != 0 && dtype != 1))
     return -1;
   const int rep = H / Hkv;
+  if (route == 0) route = tc_takes(dtype, D, rep) ? 2 : 1;
+  if (route == 2) {
+    if (!tc_takes(dtype, D, rep) || ws != nullptr) return -1;
+    return by_cluster(n_split, [&](auto c) {
+      return dispatch_tc<decltype(c)::value>(D, q, k, v, len, o, B, S, H,
+                                             Hkv, scale, s);
+    });
+  }
+  if (route != 1 || n_split != (S + kSplit - 1) / kSplit ||
+      2 * n_split * sizeof(float) > (size_t)kMaxCombineSmem)
+    return -1;
   float* wa = n_split > 1 ? static_cast<float*>(ws) : nullptr;
   float* wm = wa ? wa + (size_t)B * Hkv * n_split * rep * D : nullptr;
-  if (route == 0) route = tc_takes(dtype, D, rep) ? 2 : 1;
-  int err;
-  if (route == 2) {
-    if (!tc_takes(dtype, D, rep)) return -1;
-    err = dispatch_tc(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
-  } else if (route == 1) {
-    err = dtype == 0
-        ? dispatch_d<float>(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s)
-        : dispatch_d<bf16>(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
-  } else {
-    return -1;
-  }
+  const int err = dtype == 0
+      ? dispatch_d<float>(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s)
+      : dispatch_d<bf16>(D, q, k, v, len, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
   if (err != 0 || n_split == 1) return err;
   return dtype == 0
       ? launch_combine<float>(wa, wm, len, o, n_split, B, S, H, Hkv, D, s)

@@ -7,8 +7,9 @@
 // Layout: q (B, Sq, H, D), k/v (B, Sk, Hkv, D), out (B, Sq, H, D), all
 // contiguous, fp32 or bf16; query head h reads KV head h / (H / Hkv).
 //
-// Design, the two tiled routes.  One block per (64-row Q tile, head,
-// batch).  The TPU kernel carries m/l/acc in VMEM scratch across a
+// Design, the two tiled routes.  One block per (Q tile, head, batch):
+// 64 rows on the tensor cores, 32 on the CUDA cores (two blocks a tile
+// there).  The TPU kernel carries m/l/acc in VMEM scratch across a
 // sequential KV grid axis; here a loop inside the block walks the KV
 // tiles instead, and it visits only the tiles that the causal and window
 // masks leave visible, so masked work is skipped as on the TPU.  Masking
@@ -33,18 +34,47 @@
 // it returns -1 where a forced route cannot take the shape.
 //
 // CUDA-core route (fp32 and head dim 8 beyond the short route's
-// limits): `flash_fwd_kernel`, K and V tiles (32 rows) staged through
-// shared memory as fp32; each query row is owned by 4 neighbouring lanes
-// of one warp, which split the row's 32 scores and its D output columns,
-// so the row's softmax reductions are two shuffles and the row's
-// probabilities never leave the warp.  It is limited by issuing
-// shared-memory loads, so the inner products read q, k, v and p as
-// 16-byte vectors (rows padded to keep them aligned and the banks
-// distinct) and each lane owns 4-column groups of the output.  At
-// D = 256 its 139 KB of shared memory allows one block per SM.  fp32
-// stays here because TF32 tensor cores (~1e-3) miss its 2e-5 tolerance;
-// head dim 8 because mma needs a depth of 16.
-//
+// limits; every shape when forced): `flash_fwd_kernel`.  fp32 stays here
+// because TF32 tensor cores (~1e-3) miss its 2e-5 tolerance, head dim 8
+// because mma needs a depth of 16.  It carries every fp32 model check at
+// full width, where a call is ~2 GFLOP (gemma3-1b's 1024 positions: 4
+// heads x 524,800 visible pairs x 4 D flops), so it is bound by the fp32
+// FMA rate (67 TFLOP/s, ~0.5 a SM) and by what feeds the FMAs: shared
+// memory gives an SM 128 bytes a clock against its 128 FMAs a clock.  So:
+//   * register tiles: a block is 32 query rows and 4 warps, each warp
+//     owning 8 rows for both products.  S = Q K^T: lane (key group kg,
+//     d lane sd) holds 8 rows x KPL keys (kg, kg + KG, ...) over its
+//     slice of d, each 16-byte load of Q (a broadcast within the warp)
+//     or of K feeding 8 or 4 * KPL FMAs; the SD partial sums of a key
+//     then meet by a reduce-scatter of shuffles that leaves each lane
+//     8 / SD rows.  O += P V: lane (row group, columns) holds 8 rows x
+//     D / 32 columns of O (64 accumulators at D = 256); P comes from the
+//     warp's own shared memory as a float4 of 4 keys (a broadcast), V as
+//     float4s of a row (lanes on consecutive 16-byte chunks), so each V
+//     load feeds 32 FMAs.  The softmax state of a row never leaves its
+//     warp: alpha and l pass through 8 floats of the warp's memory;
+//   * loads: Q and the K / V tiles by 16-byte cp.async into two stages;
+//     tile j + 1 is issued right after the one block barrier of tile j,
+//     so it lands while tile j is computed.  K rows are padded (32 bytes
+//     when 4 key groups share a quarter warp, else 16) so that the lanes
+//     of a quarter warp read distinct banks; rows past Sq or Sk are
+//     zero-filled;
+//   * schedule: 32-row query tiles, the last (heaviest under causal
+//     masking) launched first; the two blocks of a cluster take the
+//     tile's alternate KV tiles and merge at the end: each pushes its O
+//     at the other's half of the columns and its m and l into the other's
+//     shared memory (distributed shared memory, over the idle stages, one
+//     cluster barrier before and one after), and each writes its half,
+//     the two states weighed in block order.  So at gemma3-1b's check
+//     (B = 1, 4 heads) 256 blocks fill the card two to an SM, and the
+//     heaviest chain is 32 rows x 512 keys, a quarter of 64-row tiles in
+//     one block; KV tiles of 32 rows (16 at D = 256), ~100 KB of shared
+//     memory at D = 256, so two blocks share an SM;
+//   * masking as before, by position against the true Sq and Sk with the
+//     finite -0.7 FLT_MAX and the visible-tile bounds of causal and
+//     window; bf16 (forced) is staged as bf16 and widened on each load.
+// Attributes are set once per device.
+
 // Tensor-core route (bf16, D = 16..256): `flash_tc_kernel`, built from
 // Hopper's own parts (hopper.cuh) so the chain runs on the tensor cores
 // with nothing else in its way.  A block is two warpgroups that take
@@ -124,11 +154,6 @@
 namespace {
 
 constexpr float kNegInf = -0.7f * 3.402823466e38f;  // -0.7 * FLT_MAX
-constexpr int kBQ = 64;                  // query rows per block
-constexpr int kBKV = 32;                 // KV rows per tile
-constexpr int kThreads = 256;
-constexpr int kLanesPerRow = kThreads / kBQ;   // 4
-constexpr int kPS = kBKV + 4;            // P tile row stride (16-B aligned)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -146,186 +171,398 @@ from_f32<__nv_bfloat16>(float x) {
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+// four elements of T from shared memory (16 bytes of fp32, 8 of bf16)
+__device__ __forceinline__ float4 ld4f(const float* p) { return ld4(p); }
+__device__ __forceinline__ float4 ld4f(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // q tile (BQ x D+4), k tile (BKV x D+4), v tile (BKV x D), p (BQ x BKV+4)
-  return sizeof(float) *
-         (kBQ * (D + 4) + kBKV * (D + 4) + kBKV * D + kBQ * kPS);
+// ---------------------------------------------------------------------
+// CUDA-core route: register tiles on the fp32 cores
+// ---------------------------------------------------------------------
+constexpr int kCcBQ = 32;                // query rows a block
+constexpr int kCcSplit = 2;              // blocks (a cluster) a query tile
+constexpr int kCcWarps = 4;              // each owns 8 of its rows
+constexpr int kCcRows = kCcBQ / kCcWarps;
+constexpr int kCcThreads = 32 * kCcWarps;
+
+template <typename T, int D>
+struct CcTile {
+  // KV rows a tile: 32, and 16 at D = 256, so that two stages of K and V
+  // and the Q tile stay near 100 KB and two blocks share an SM
+  static constexpr int BKV = D == 256 ? 16 : 32;
+  // scores: SD lanes split d (four elements a load), KG key groups; after
+  // the sum over the SD lanes each lane keeps RPL rows x KPL keys
+  static constexpr int SD = D / 4 < 8 ? D / 4 : 8;
+  static constexpr int KG = 32 / SD;
+  static constexpr int KPL = BKV / KG;
+  static constexpr int RPL = kCcRows / SD;
+  static constexpr int DPL = D / SD / 4;  // loads of d a lane per row
+  // P V: LPR lanes across a row of O, PVG row groups of PVR rows, CPL
+  // columns a lane
+  static constexpr int LPR = D < 32 ? D : 32;
+  static constexpr int PVG = 32 / LPR;
+  static constexpr int PVR = kCcRows / PVG;
+  static constexpr int CPL = D / LPR;
+  // K rows are padded so that the lanes of a quarter warp (KG = 4: four
+  // keys by two d offsets; else eight keys) read distinct banks
+  static constexpr int KS = D + (KG == 4 ? 32 : 16) / (int)sizeof(T);
+  static constexpr int PST = BKV + 4;    // P row stride (floats)
+  static constexpr int VEC = 16 / (int)sizeof(T);  // elements a cp.async
+  static constexpr size_t Q_ELEMS = (size_t)kCcBQ * D;
+  static constexpr size_t K_ELEMS = (size_t)BKV * KS;
+  static constexpr size_t V_ELEMS = (size_t)BKV * D;
+  // per warp: P (8 x PST), then 8 floats (alpha, at the end l) and 8 (m)
+  static constexpr size_t P_FLOATS = (size_t)kCcRows * PST + 2 * kCcRows;
+  static constexpr size_t SMEM =
+      sizeof(T) * (Q_ELEMS + 2 * K_ELEMS + 2 * V_ELEMS) +
+      sizeof(float) * kCcWarps * P_FLOATS;
+  static_assert(D % (4 * SD) == 0 && BKV % KG == 0 && KPL >= 1, "tiles");
+  static_assert(kCcRows % SD == 0 && CPL >= 1, "lanes");
+  static_assert((KS * sizeof(T)) % 16 == 0 && (D * sizeof(T)) % 16 == 0,
+                "16-byte rows for cp.async");
+  // after the tiles the partner's O at this block's columns (32 x D / 2)
+  // and its m and l of each row land over the K / V stages
+  static_assert(sizeof(T) * 2 * (K_ELEMS + V_ELEMS) >=
+                    sizeof(float) * kCcBQ * (D / 2 + 2),
+                "the partner's state fits the stages");
+};
+
+// Sum one half of R rows of partial scores with the lane `mask` apart:
+// the lane with the mask bit set keeps the upper half, the other the
+// lower, each adding its partner's share of the half it keeps.
+template <int R, int KPL>
+__device__ __forceinline__ void reduce_half(float (&s)[kCcRows][KPL],
+                                            int mask, bool upper) {
+#pragma unroll
+  for (int r = 0; r < R / 2; ++r)
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const float send = upper ? s[r][j] : s[r + R / 2][j];
+      const float keep = upper ? s[r + R / 2][j] : s[r][j];
+      s[r][j] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+}
+
+// CPL columns of one row of V (from shared memory) for lane column lc
+template <typename T, int CPL, int LPR>
+__device__ __forceinline__ void load_cols(const T* row, int lc,
+                                          float (&v)[CPL]) {
+  if constexpr (CPL >= 4) {
+#pragma unroll
+    for (int u = 0; u < CPL / 4; ++u) {
+      const float4 x = ld4f(row + 4 * (lc + LPR * u));
+      v[4 * u] = x.x;
+      v[4 * u + 1] = x.y;
+      v[4 * u + 2] = x.z;
+      v[4 * u + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) v[c] = to_f32(row[CPL * lc + c]);
+  }
+}
+
+// the column of O that a lane's c-th accumulator holds
+template <int CPL, int LPR>
+__device__ __forceinline__ int col_of(int lc, int c) {
+  return CPL >= 4 ? 4 * (lc + LPR * (c / 4)) + c % 4 : CPL * lc + c;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCcThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                  int H, int Hkv, int causal, int window, float scale) {
-  static_assert(D % kLanesPerRow == 0, "D must be a multiple of 4");
-  static_assert(kBKV * D % kThreads == 0, "tile loads must split evenly");
-  // row stride D + 4: 16-byte aligned, and rows 4 banks apart, so the
-  // 2 q rows / 4 k rows a quarter-warp reads never share a bank
-  constexpr int RP = D + 4;
-  constexpr int kCols = D / kLanesPerRow;      // output columns per lane
-  constexpr int kScores = kBKV / kLanesPerRow;  // scores per lane per tile
-  // lanes own 4-column groups (16-byte V reads) when D allows it
-  constexpr bool kVec = kCols % 4 == 0;
+  using C = CcTile<T, D>;
+  constexpr int BKV = C::BKV, SD = C::SD, KG = C::KG, KPL = C::KPL;
+  constexpr int RPL = C::RPL, PVR = C::PVR, CPL = C::CPL, LPR = C::LPR;
+  constexpr int KS = C::KS, PST = C::PST, VEC = C::VEC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);                // 32 x D
+  T* ks0 = qs + C::Q_ELEMS;                              // 2 x BKV x KS
+  T* vs0 = ks0 + 2 * C::K_ELEMS;                         // 2 x BKV x D
+  float* pw = reinterpret_cast<float*>(vs0 + 2 * C::V_ELEMS);
 
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // kBQ x RP
-  float* ks = qs + kBQ * RP;        // kBKV x RP
-  float* vs = ks + kBKV * RP;       // kBKV x D
-  float* ps = vs + kBKV * D;        // kBQ x kPS
-
-  const int q_lo = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // the two blocks of a cluster take alternate KV tiles of one query tile
+  // and merge at the end; each writes half of the columns
+  const int part = (int)hopper::cluster_rank();
+  const int h = blockIdx.x / kCcSplit, b = blockIdx.y;
+  // under causal masking the heaviest query tiles are launched first
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q_lo = qt * kCcBQ;
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int row = tid / kLanesPerRow;
-  const int sub = tid % kLanesPerRow;
-  const int qpos = q_lo + row;
-
-#pragma unroll 8
-  for (int j = 0; j < kBQ * D / kThreads; ++j) {
-    const int i = tid + j * kThreads;
-    const int r = i / D, d = i % D;
-    const int s = q_lo + r;
-    float x = 0.f;
-    if (s < Sq) x = to_f32(q[((size_t)(b * Sq + s) * H + h) * D + d]);
-    qs[r * RP + d] = x;
-  }
-
-  float acc[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // scores: key group kg, d lanes sd; after the sum, rows sd RPL + i
+  const int kg = lane % KG, sd = lane / KG;
+  // P V: row group pg (rows pg PVR + i), column lane lc
+  const int lc = lane % LPR, pg = lane / LPR;
+  const int row0 = q_lo + warp * kCcRows;   // this warp's first row
+  const T* qw = qs + warp * kCcRows * D;
+  float* ps = pw + warp * C::P_FLOATS;      // this warp's P, then 16 floats
+  float* aw = ps + kCcRows * PST;
 
   // visible KV tiles of this query tile (the TPU kernel's pl.when test)
-  const int n_tiles = (Sk + kBKV - 1) / kBKV;
+  const int n_tiles = (Sk + BKV - 1) / BKV;
   int hi = n_tiles;
-  if (causal) hi = min(n_tiles, (q_lo + kBQ - 1) / kBKV + 1);
+  if (causal) hi = min(n_tiles, (q_lo + kCcBQ - 1) / BKV + 1);
   int lo = 0;
-  if (window > 0 && q_lo - window + 1 > 0) lo = (q_lo - window + 1) / kBKV;
+  if (window > 0 && q_lo - window + 1 > 0) lo = (q_lo - window + 1) / BKV;
+  // this block's tiles: lo + part, lo + part + 2, ...
+  const int n_vis = max(hi - lo - part + 1, 0) / kCcSplit;
 
-  const float* qrow = qs + row * RP;
-  float* prow = ps + row * kPS;
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k_lo = kt * kBKV;
-    __syncthreads();  // the previous tile's K/V reads are done
-    // a compile-time trip count keeps several loads of the tile in flight
-#pragma unroll 8
-    for (int j = 0; j < kBKV * D / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / D, d = i % D;
-      const int s = k_lo + r;
-      float kx = 0.f, vx = 0.f;
-      if (s < Sk) {
-        const size_t off = ((size_t)(b * Sk + s) * Hkv + hk) * D + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      ks[r * RP + d] = kx;
-      vs[r * D + d] = vx;
+  // 16-byte cp.async copies of KV tile kt into stage st; rows past Sk are
+  // zero-filled (0 * V must not meet stale bits)
+  constexpr int CH = D / VEC;                // copies a row
+  auto load_kv = [&](int kt, int st) {
+    T* ks = ks0 + st * C::K_ELEMS;
+    T* vs = vs0 + st * C::V_ELEMS;
+    for (int i = tid; i < BKV * CH; i += kCcThreads) {
+      const int r = i / CH, c = i % CH;
+      const int s = kt * BKV + r;
+      const bool ok = s < Sk;
+      const size_t off =
+          ((size_t)b * Sk + (ok ? s : 0)) * Hkv * D + (size_t)hk * D + c * VEC;
+      mma::cp_async16(ks + r * KS + c * VEC, k + off, ok ? 16 : 0);
+      mma::cp_async16(vs + r * D + c * VEC, v + off, ok ? 16 : 0);
     }
+  };
+  for (int i = tid; i < kCcBQ * CH; i += kCcThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = q_lo + r < Sq;
+    const size_t off =
+        ((size_t)b * Sq + (ok ? q_lo + r : 0)) * H * D + (size_t)h * D + c * VEC;
+    mma::cp_async16(qs + r * D + c * VEC, q + off, ok ? 16 : 0);
+  }
+  if (n_vis > 0) load_kv(lo + part, 0);
+  mma::cp_async_commit();
+
+  float oacc[PVR][CPL];
+#pragma unroll
+  for (int i = 0; i < PVR; ++i)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) oacc[i][c] = 0.f;
+  float m[RPL], l[RPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  for (int it = 0; it < n_vis; ++it) {
+    // tile it has landed for every thread, and every warp is done with
+    // tile it - 1, whose stage the next copies refill
+    mma::cp_async_wait<0>();
     __syncthreads();
+    if (it + 1 < n_vis) load_kv(lo + part + kCcSplit * (it + 1), (it + 1) & 1);
+    mma::cp_async_commit();
+    const int k_lo = (lo + part + kCcSplit * it) * BKV;
+    const T* ks = ks0 + (it & 1) * C::K_ELEMS;
+    const T* vs = vs0 + (it & 1) * C::V_ELEMS;
 
-    // scores of keys sub, sub+4, ..., sub+28 against this lane's row
-    float sc[kScores];
+    // S = Q K^T for the warp's 8 rows: this lane's keys kg + KG j against
+    // its d slice (elements 4 (sd + SD u) .. + 3), 8 x KPL partial sums
+    float s[kCcRows][KPL];
 #pragma unroll
-    for (int j = 0; j < kScores; ++j) sc[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 q4 = ld4(qrow + d);
+    for (int r = 0; r < kCcRows; ++r)
 #pragma unroll
-      for (int j = 0; j < kScores; ++j) {
-        const float4 k4 = ld4(ks + (sub + kLanesPerRow * j) * RP + d);
-        sc[j] = fmaf(q4.x, k4.x, sc[j]);
-        sc[j] = fmaf(q4.y, k4.y, sc[j]);
-        sc[j] = fmaf(q4.z, k4.z, sc[j]);
-        sc[j] = fmaf(q4.w, k4.w, sc[j]);
-      }
-    }
-    float tile_max = kNegInf;
+      for (int j = 0; j < KPL; ++j) s[r][j] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kScores; ++j) {
-      const int kpos = k_lo + sub + kLanesPerRow * j;
-      bool keep = kpos < Sk;
-      if (causal) keep = keep && kpos <= qpos;
-      if (window > 0) keep = keep && kpos > qpos - window;
-      sc[j] = keep ? sc[j] * scale : kNegInf;
-      tile_max = fmaxf(tile_max, sc[j]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
+    for (int u = 0; u < C::DPL; ++u) {
+      const int d = 4 * (sd + SD * u);
+      float4 q4[kCcRows];
 #pragma unroll
-    for (int j = 0; j < kScores; ++j) {
-      const float p = expf(sc[j] - m_new);
-      psum += p;
-      prow[sub + kLanesPerRow * j] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // the row's probabilities are visible to its 4 lanes
-
+      for (int r = 0; r < kCcRows; ++r) q4[r] = ld4f(qw + r * D + d);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] *= alpha;
-    for (int kc = 0; kc < kBKV; kc += 4) {
-      const float4 p4 = ld4(prow + kc);
-      const float pk[4] = {p4.x, p4.y, p4.z, p4.w};
+      for (int j = 0; j < KPL; ++j) {
+        const float4 k4 = ld4f(ks + (kg + KG * j) * KS + d);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = vs + (kc + u) * D;
-        if constexpr (kVec) {
-#pragma unroll
-          for (int g = 0; g < kCols / 4; ++g) {
-            const float4 v4 = ld4(vrow + g * 4 * kLanesPerRow + sub * 4);
-            acc[4 * g + 0] = fmaf(pk[u], v4.x, acc[4 * g + 0]);
-            acc[4 * g + 1] = fmaf(pk[u], v4.y, acc[4 * g + 1]);
-            acc[4 * g + 2] = fmaf(pk[u], v4.z, acc[4 * g + 2]);
-            acc[4 * g + 3] = fmaf(pk[u], v4.w, acc[4 * g + 3]);
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            acc[c] = fmaf(pk[u], vrow[sub + kLanesPerRow * c], acc[c]);
+        for (int r = 0; r < kCcRows; ++r) {
+          s[r][j] = fmaf(q4[r].x, k4.x, s[r][j]);
+          s[r][j] = fmaf(q4[r].y, k4.y, s[r][j]);
+          s[r][j] = fmaf(q4[r].z, k4.z, s[r][j]);
+          s[r][j] = fmaf(q4[r].w, k4.w, s[r][j]);
         }
       }
     }
-  }
+    // sum over the SD lanes of a key group, each keeping RPL rows
+    if constexpr (SD >= 2) reduce_half<8, KPL>(s, 16, lane & 16);
+    if constexpr (SD >= 4) reduce_half<4, KPL>(s, 8, lane & 8);
+    if constexpr (SD >= 8) reduce_half<2, KPL>(s, 4, lane & 4);
 
-  if (qpos < Sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + ((size_t)(b * Sq + qpos) * H + h) * D;
+    // online softmax of rows sd RPL + i, masked by position
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = kVec ? (c / 4) * 4 * kLanesPerRow + sub * 4 + c % 4
-                           : sub + kLanesPerRow * c;
-      orow[col] = from_f32<T>(acc[c] * inv);
+    for (int i = 0; i < RPL; ++i) {
+      const int rl = sd * RPL + i;        // row within the warp
+      const int qpos = row0 + rl;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int kpos = k_lo + kg + KG * j;
+        bool keep = kpos < Sk;
+        if (causal) keep = keep && kpos <= qpos;
+        if (window > 0) keep = keep && kpos > qpos - window;
+        s[i][j] = keep ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < KG; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        psum += p;
+        ps[rl * PST + kg + KG * j] = p;
+      }
+#pragma unroll
+      for (int off = 1; off < KG; off <<= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l[i] = l[i] * alpha + psum;
+      m[i] = m_new;
+      if (kg == 0) aw[rl] = alpha;
+    }
+    __syncwarp();                         // P and alpha, for the whole warp
+
+    // O = alpha O + P V for rows pg PVR + i: 4 keys of P a load, CPL
+    // columns of V a key
+#pragma unroll
+    for (int i = 0; i < PVR; ++i) {
+      const float a = aw[pg * PVR + i];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) oacc[i][c] *= a;
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < BKV; kk += 4) {
+      float4 p4[PVR];
+#pragma unroll
+      for (int i = 0; i < PVR; ++i) p4[i] = ld4(ps + (pg * PVR + i) * PST + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[CPL];
+        load_cols<T, CPL, LPR>(vs + (kk + u) * D, lc, vv);
+#pragma unroll
+        for (int i = 0; i < PVR; ++i) {
+          const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y
+                        : u == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) oacc[i][c] = fmaf(p, vv[c], oacc[i][c]);
+        }
+      }
+    }
+    __syncwarp();                         // P is read before it is rewritten
+  }
+  mma::cp_async_wait<0>();                // Q's copies, where no tile ran
+
+  // each row's l and m to the warp's shared floats; then, once both blocks
+  // are done with their stages, each pushes its O at the partner's
+  // columns and its m and l into the partner's stages, and merges its own
+  // columns: O = (O_0 w_0 + O_1 w_1) / (l_0 w_0 + l_1 w_1), w_s =
+  // exp(m_s - max m), in part order
+  if (kg == 0)
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      aw[sd * RPL + i] = l[i];
+      aw[kCcRows + sd * RPL + i] = m[i];
+    }
+  __syncwarp();
+  float* in_o = reinterpret_cast<float*>(ks0);       // 32 x D / 2
+  float* in_ml = in_o + kCcBQ * (D / 2);              // 32 x (m, l)
+  const int other = kCcSplit - 1 - part;
+  hopper::cluster_sync();                 // both blocks' stages are free
+#pragma unroll
+  for (int i = 0; i < PVR; ++i) {
+    const int rb = warp * kCcRows + pg * PVR + i;    // row in the tile
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int col = col_of<CPL, LPR>(lc, c);
+      if (col / (D / 2) == other)
+        hopper::peer_store(hopper::peer_addr(
+            in_o + rb * (D / 2) + col - other * (D / 2), other), oacc[i][c]);
     }
   }
+  if (kg == 0)
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      const int rb = warp * kCcRows + sd * RPL + i;
+      hopper::peer_store2(hopper::peer_addr(in_ml + 2 * rb, other),
+                          make_float2(m[i], l[i]));
+    }
+  hopper::cluster_sync();                 // every push has landed
+#pragma unroll
+  for (int i = 0; i < PVR; ++i) {
+    const int rl = pg * PVR + i;
+    const int rb = warp * kCcRows + rl;
+    const int qpos = row0 + rl;
+    if (qpos >= Sq) continue;
+    const float m_me = aw[kCcRows + rl], l_me = aw[rl];
+    const float m_ot = in_ml[2 * rb], l_ot = in_ml[2 * rb + 1];
+    const float mm = fmaxf(m_me, m_ot);
+    const float w_me = expf(m_me - mm), w_ot = expf(m_ot - mm);
+    // the parts' weights in part order, so both blocks sum alike
+    const float w0 = part == 0 ? w_me : w_ot, w1 = part == 0 ? w_ot : w_me;
+    const float l0 = part == 0 ? l_me : l_ot, l1 = part == 0 ? l_ot : l_me;
+    const float inv = 1.f / fmaxf(l0 * w0 + l1 * w1, 1e-30f);
+    T* orow = o + ((size_t)(b * Sq + qpos) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int col = col_of<CPL, LPR>(lc, c);
+      if (col / (D / 2) != part) continue;
+      const float x_me = oacc[i][c];
+      const float x_ot = in_o[rb * (D / 2) + col - part * (D / 2)];
+      const float x = part == 0 ? x_me * w0 + x_ot * w1
+                                : x_ot * w0 + x_me * w1;
+      orow[col] = from_f32<T>(x * inv);
+    }
+  }
+}
+
+// The CUDA-core kernel's shared-memory limit, set once per device.
+template <typename T, int D>
+cudaError_t cc_attributes() {
+  static std::atomic<unsigned long long> done{0};   // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)CcTile<T, D>::SMEM);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int Hkv, int causal, int window,
            float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, causal,
-      window, scale);
+  const cudaError_t e = cc_attributes<T, D>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCcSplit * H, B, (Sq + kCcBQ - 1) / kCcBQ);
+  cfg.blockDim = dim3(kCcThreads, 1, 1);
+  cfg.dynamicSmemBytes = CcTile<T, D>::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCcSplit;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, flash_fwd_kernel<T, D>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
+      Sq, Sk, H, Hkv, causal, window, scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the port's bf16 tensor-core flash
-// kernel: warpgroup products (wgmma) and the shared-memory descriptors
-// they read, the swizzled tile layout that TMA writes and wgmma reads,
-// mbarriers and TMA tile loads.
+// Hopper (sm_90a) building blocks of the port's kernels: warpgroup
+// products (wgmma) and the shared-memory descriptors they read,
+// the swizzled tile layout that TMA writes and wgmma reads, mbarriers, TMA
+// tile loads (flash), and thread-block clusters: their barrier and
+// stores to a peer block's shared memory (decode, and flash's fp32
+// route).
 //
 // Tile layout.  A tile of R rows by C bf16 columns is stored as C / W
 // column blocks, each R rows of W elements (2W = 128, 64 or 32 bytes a
@@ -197,6 +199,47 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (clock64() - t0 > kMaxWaitCycles) __trap();
   }
+}
+
+// The block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Cluster barrier of every thread of every block of the cluster, in two
+// halves: arrive (relaxed: orders nothing) and wait.  A block that has
+// arrived has started, so after the wait every block's shared memory may
+// be written.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The whole barrier: shared-memory writes before it, to any block of the
+// cluster (release), are visible to every block after it (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of `p` (in this block's shared memory) in the shared memory
+// of the cluster's block `rank`, and stores there.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void peer_store(uint32_t a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void peer_store2(uint32_t a, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+               :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
 }
 
 // One box of a 4-d tensor map into shared memory, completing on `bar`;

@@ -16,11 +16,16 @@ shapes (fp32, 2 heads on 1, D = 16 and 8, B up to 8 over 64 slots), at
 GQA groups 10, 17, 24 and 32 and at lengths 0, 1, 64, 65 and S (a row
 of length 0 is 0, as from the TPU kernel), and the SSD at a chunk of
 40; every route of decode and the SSD is forced and counted (an SSD
-call is three kernels, a decode call two past one split).  The bf16
-tensor-core kernels run at every head dim 16-256 (GQA groups 1, 7 and
-16, windows, partial tiles) and, for the SSD, at one chunk, at 16
-chunks over many more blocks than the card holds at once, and at chunk
-128 and N up to 272.
+call is three kernels; a decode call one on the tensor cores, two past
+one split on the CUDA cores).  The bf16 tensor-core kernels run at every
+head dim 16-256 (GQA groups 1, 7 and 16, windows, partial tiles) and,
+for the SSD, at one chunk, at 16 chunks over many more blocks than the
+card holds at once, and at chunk 128 and N up to 272; decode's cluster
+kernel also at lengths below the cluster size, mid-tile and over 4096
+slots (several tiles a rank), at both cluster sizes.  The fp32 flash
+kernel (the CUDA-core route) runs at every head dim, with windows,
+Sq != Sk and S not a multiple of its 32-row query tiles, and takes head
+dim 8 in both dtypes when forced.
 """
 
 import numpy as np
@@ -352,12 +357,136 @@ def test_cuda_decode_attention_routes_match_plain(cuda, B, S, H, Hkv, D,
     for r in _routes(rule):
         before = stats.launches_by_route.get(r, 0)
         out = decode_mod.launch(q, kc, vc, lengths, force=r)
-        # the split kernel, and the combine past one split
-        assert stats.launches_by_route[r] - before == \
-            (2 if decode_mod.num_splits(S) > 1 else 1)
+        # the cluster kernel alone; the split kernel, and the combine past
+        # one split
+        assert stats.launches_by_route[r] - before == _decode_kernels(r, S)
         _close(out.cpu(), want.numpy(), dtype)
         if r == rule:
             assert torch.equal(out, decode_mod.launch(q, kc, vc, lengths))
+
+
+def _decode_kernels(route, S):
+    """Kernels one decode call puts on the card on ``route``."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    if route == "tensor_core":
+        return 1
+    return 2 if decode_mod.num_splits(S) > 1 else 1
+
+
+# decode's tensor-core cluster kernel: lengths 0, 1, below the cluster
+# size, mid-tile (a rank's range ends inside a 16-row piece) and S; 4096
+# slots (four tiles a rank); every head dim; GQA groups 1, 7 and 16; more
+# than one KV head
+DECODE_TC_GRID = [
+    # B, S, H, Hkv, D, lengths
+    *[(5, 1024, 4, 1, D, (0, 1, 5, 520, 1024)) for D in (16, 32, 64, 128,
+                                                         256)],
+    (3, 4096, 16, 1, 256, (2100, 4096, 9)),
+    (3, 4096, 7, 1, 16, (4096, 1, 3000)),
+    (4, 256, 14, 2, 64, (0, 7, 100, 256)),
+    (2, 512, 16, 16, 32, (333, 512)),
+    (2, 48, 1, 1, 128, (47, 48)),
+]
+
+
+# each case at the cluster size the shape takes (0) and at every size the
+# kernel is built for that the head dim allows (at most D / 2)
+DECODE_TC_CASES = [(*case, c) for case in DECODE_TC_GRID
+                   for c in (0, 1, 2, 4, 8, 16) if c <= case[4] // 2]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens,cluster", DECODE_TC_CASES)
+def test_cuda_decode_tensor_core_cluster_matches_plain(cuda, B, S, H, Hkv, D,
+                                                       lens, cluster):
+    """The one-launch cluster kernel against the plain version (rows of
+    length 0 are 0), one launch and one kernel record a call, and the
+    same bits from the route chosen by shape."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    q, kc, vc = (_t(x, "bfloat16").to(cuda) for x in _inputs(
+        12 + D, (B, 1, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    lengths = torch.tensor(np.asarray(lens, np.int32)).to(cuda)
+    want = ref.decode_attention_ref(q, kc, vc, lengths).cpu().float()
+    want[torch.as_tensor(np.asarray(lens)) == 0] = 0
+    stats = KERNEL_STATS["decode_attention"]
+    before = stats.launches_by_route.get("tensor_core", 0)
+    out = decode_mod.launch(q, kc, vc, lengths, force="tensor_core",
+                            cluster=cluster)
+    assert stats.launches_by_route["tensor_core"] - before == 1
+    _close(out.cpu(), want.numpy(), "bfloat16")
+    if cluster == 0:
+        assert torch.equal(out, decode_mod.launch(q, kc, vc, lengths))
+    assert _kernel_records(
+        lambda: decode_mod.launch(q, kc, vc, lengths, force="tensor_core",
+                                  cluster=cluster), "decode_tc_kernel",
+        3) == 3
+
+
+def _kernel_records(fn, name, calls, tries=5):
+    """``fn`` ``calls`` times under the profiler: the device records of
+    kernels whose name holds ``name``.  The tracer can drop records late in
+    a process (never add them), so a session that holds other than
+    ``calls`` records is run again, at most ``tries`` times; each session
+    starts with a warm-up step of empty kernels, whose records it does not
+    keep."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        records = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                      and name in e.name for e in prof.events())
+        if records == calls:
+            break
+    return records
+
+
+# the fp32 flash kernel (CUDA cores) at every head dim, windows, Sq != Sk
+# (queries at positions 0 .. Sq - 1 against Sk keys) and S that is not a
+# multiple of its 32-row query tiles or its KV tiles
+FLASH_CC_GRID = [
+    # B, Sq, Sk, H, Hkv, D, causal, window
+    *[(2, 100, 100, 4, 2, D, True, 0) for D in (8, 16, 32, 64, 128, 256)],
+    *[(1, 77, 77, 14, 2, D, True, 33) for D in (16, 64, 256)],
+    (2, 40, 130, 4, 1, 64, True, 0),
+    (2, 130, 40, 4, 4, 32, True, 0),
+    (1, 90, 50, 2, 1, 256, False, 0),
+    (1, 50, 90, 8, 2, 128, False, 24),
+    (1, 1000, 1000, 16, 16, 64, True, 0),
+    (1, 257, 257, 16, 1, 256, True, 100),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", FLASH_CC_GRID)
+def test_cuda_flash_cuda_core_route_matches_plain(cuda, B, Sq, Sk, H, Hkv,
+                                                  D, causal, window):
+    """fp32 by shape (the CUDA-core route past the short route's limits),
+    and head dim 8 forced onto it in both dtypes."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    for dtype in DTYPES:
+        if dtype == "bfloat16" and D != 8:
+            continue
+        q, k, v = (_t(x, dtype).to(cuda) for x in _inputs(
+            13 + D, (B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+        stats = KERNEL_STATS["flash_attention"]
+        before = stats.launches_by_route.get("cuda_core", 0)
+        got = flash_mod.launch(q, k, v, causal=causal, window=window,
+                               force="cuda_core")
+        assert stats.launches_by_route["cuda_core"] - before == 1
+        _close(got.cpu(), want.cpu().float().numpy(), dtype)
+        if flash_mod.route(dtype, D, Sq, Sk) == "cuda_core":
+            assert torch.equal(got, flash_mod.launch(
+                q, k, v, causal=causal, window=window))
 
 
 RGLRU_EDGE_GRID = RGLRU_GRID + [

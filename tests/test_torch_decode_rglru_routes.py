@@ -17,9 +17,16 @@
   bf16's tolerance (atol = rtol = 2e-2) for the bf16 decode and fp32's
   (atol = rtol = 2e-5) for the fp32 decode at lm-tiny's shapes and for
   the scan.
+* A mirror of the tensor-core route's one cluster launch (each rank's
+  rows from ``rank_rows``, an online softmax over its tiles with P
+  rounded to bf16, the ranks merged in rank order), held against the
+  Pallas kernel and the plain version at bf16's tolerance, and the rank
+  ranges, which cover each valid row once.
 * The decode wrapper's contract with the C entry: the shared memory of
-  the route it takes at the tensors' dtype, a workspace only past one
-  split, and one launch a call (two with the combine).
+  the route it takes at the tensors' dtype; on the CUDA cores the splits,
+  a workspace only past one split, and one launch a call (two with the
+  combine); on the tensor cores the cluster size, no workspace and one
+  launch.
 
 The kernels themselves run only on a card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
@@ -291,25 +298,34 @@ class _FakeDecodeLib:
         self.calls.append(args)
         return 0
 
+    def decode_attention_max_active_clusters(self, D, S, cluster):
+        return 15                   # D = 256's answer for clusters of 8
+
 
 @pytest.mark.parametrize("dtype,S,H,D,taken,kernels", [
     ("float32", 64, 2, 16, "cuda_core", 1),      # lm-tiny: one split
     ("float32", 1024, 4, 256, "cuda_core", 2),   # split + combine
-    ("bfloat16", 1024, 4, 256, "tensor_core", 2),
+    ("bfloat16", 1024, 4, 256, "tensor_core", 1),  # one cluster launch
     ("bfloat16", 128, 32, 64, "cuda_core", 2),   # a group above 16
 ])
 def test_decode_wrapper_sizes_each_route_by_dtype(monkeypatch, dtype, S, H,
                                                   D, taken, kernels):
     """The wrapper asks the library for the shared memory of the route it
-    takes at the tensors' dtype, hands it a workspace only past one split,
-    and counts the split kernel (and the combine) under that route."""
+    takes at the tensors' dtype.  On the CUDA cores it hands the library
+    ceil(S / 64) splits and a workspace only past one split, and counts
+    the split kernel (and the combine); on the tensor cores the cluster
+    size and no workspace, and counts one kernel.  Each call is counted
+    by its shape."""
     lib = _FakeDecodeLib()
 
     class _Stream:
         cuda_stream = 0
     monkeypatch.setattr(build, "library", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
-    decode_mod._smem_bytes.cache_clear()
+    caches = (decode_mod._smem_bytes, decode_mod._max_clusters,
+              decode_mod._cluster_for)
+    for cache in caches:
+        cache.cache_clear()
     B, Hkv = 2, 1
     q = torch.zeros((B, 1, H, D), dtype=getattr(torch, dtype))
     kc = torch.zeros((B, S, Hkv, D), dtype=q.dtype)
@@ -317,14 +333,20 @@ def test_decode_wrapper_sizes_each_route_by_dtype(monkeypatch, dtype, S, H,
     before = stats.launches_by_route.get(taken, 0)
     assert decode_mod.route(dtype, D, H // Hkv) == taken
     decode_mod.launch(q, kc, kc, torch.full((B,), S))
-    decode_mod._smem_bytes.cache_clear()
+    for cache in caches:
+        cache.cache_clear()
     assert lib.smem_args == [(H // Hkv, D, build.DTYPE_CODES[dtype],
                               build.ROUTE_CODES[taken])]
     args = lib.calls[-1]
-    n_split = decode_mod.num_splits(S)
-    assert (args[5] is None) == (n_split == 1)
-    assert args[6:12] == (n_split, B, S, H, Hkv, D)
+    if taken == "tensor_core":
+        assert args[5] is None
+        assert args[6:12] == (decode_mod.CLUSTER, B, S, H, Hkv, D)
+    else:
+        n_split = decode_mod.num_splits(S)
+        assert (args[5] is None) == (n_split == 1)
+        assert args[6:12] == (n_split, B, S, H, Hkv, D)
     assert stats.launches_by_route[taken] - before == kernels
+    assert stats.calls_by_shape[(dtype, B, S, H, Hkv, D)] >= 1
 
 
 def test_decode_split_mirror_gives_zero_for_an_empty_row():
@@ -344,6 +366,144 @@ def test_decode_split_mirror_gives_zero_for_an_empty_row():
     assert not _np(got)[0].any()
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                **BF16_TOL)
+
+
+# --------------------------------------------------------------------- #
+# decode: a mirror of the tensor-core route's one cluster launch
+# --------------------------------------------------------------------- #
+def decode_cluster_mirror(q, kc, vc, lengths, cluster):
+    """The cluster kernel's algebra, in fp32 on the CPU.
+
+    Per (row, KV head): rank r of the cluster takes the rows
+    ``rank_rows`` gives it, in tiles of ``tile_rows(S)``, with an online
+    softmax over its tiles (fp32 scores, running max m, p = exp(s - m)
+    with P rounded to q's dtype before P V, l the sum of the unrounded
+    p); a rank with no rows keeps m = -0.7·FLT_MAX, l = 0, acc = 0.  The
+    ranks merge in rank order with weights exp(m_r - max m), the sum of l
+    clamped at 1e-30, so a row of length 0 is 0.
+    """
+    B, _, H, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    tile = decode_mod.tile_rows(S, cluster)
+    out = torch.zeros((B, H, D), dtype=torch.float32)
+    for b in range(B):
+        ranges = decode_mod.rank_rows(int(lengths[b]), S, cluster)
+        for hk in range(Hkv):
+            qg = q[b, 0, hk * rep:(hk + 1) * rep].float()
+            ms, ls, accs = [], [], []
+            for lo, hi in ranges:
+                m = torch.full((rep,), NEG_INF)
+                l = torch.zeros(rep)
+                acc = torch.zeros((rep, D))
+                for t0 in range(lo, hi, tile):
+                    t1 = min(t0 + tile, hi)
+                    s = qg @ kc[b, t0:t1, hk].float().T * scale
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[:, None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + (
+                        p.to(q.dtype).float() @ vc[b, t0:t1, hk].float())
+                    m = m_new
+                ms.append(m)
+                ls.append(l)
+                accs.append(acc)
+            m_all = torch.stack(ms)                      # (cluster, rep)
+            w = torch.exp(m_all - m_all.max(0).values)
+            l_tot = torch.zeros(rep)
+            acc = torch.zeros((rep, D))
+            for r in range(cluster):                     # rank order
+                l_tot = l_tot + ls[r] * w[r]
+                acc = acc + accs[r] * w[r][:, None]
+            out[b, hk * rep:(hk + 1) * rep] = acc / l_tot.clamp_min(
+                1e-30)[:, None]
+    return out.to(q.dtype)[:, None]
+
+
+DECODE_CLUSTER_CASES = [
+    # B, S, H, Hkv, D, lengths (0, 1, below the cluster size, 520, S),
+    # cluster size
+    (5, 1024, 7, 1, 256, (0, 1, 5, 520, 1024), 8),   # a group of 7
+    (5, 1024, 16, 1, 16, (0, 1, 5, 520, 1024), 8),   # a group of 16
+    (2, 4096, 1, 1, 16, (4096, 2100), 8),            # several tiles a rank
+    (1, 4096, 16, 1, 256, (3001,), 16),
+    (2, 512, 14, 2, 64, (333, 512), 4),              # two KV heads
+    (2, 1024, 16, 16, 64, (520, 9), 2),
+    (3, 256, 4, 1, 32, (0, 200, 256), 1),            # one block
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens,cluster", DECODE_CLUSTER_CASES)
+def test_decode_cluster_mirror_matches_pallas_and_plain(B, S, H, Hkv, D,
+                                                        lens, cluster):
+    """The one-launch algebra against the JAX package's Pallas kernel
+    (interpret mode; a row of length 0 is 0 there too) and, on rows with
+    a valid position, the plain version, at bf16's tolerance."""
+    q, kc, vc = _decode_inputs(B * 11 + S + H + D, B, S, H, Hkv, D)
+    lengths = np.asarray(lens, np.int32)
+    qt, kt, vt = (torch.from_numpy(x).bfloat16() for x in (q, kc, vc))
+    got = _np(decode_cluster_mirror(qt, kt, vt, torch.from_numpy(lengths),
+                                    cluster))
+    want = np.asarray(jops.decode_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kc, jnp.bfloat16),
+        jnp.asarray(vc, jnp.bfloat16), jnp.asarray(lengths),
+        block_kv=min(512, S)), np.float32)
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+    empty = lengths == 0
+    assert not got[empty].any()
+    plain = _np(ref.decode_attention_ref(qt, kt, vt,
+                                         torch.from_numpy(lengths)))
+    np.testing.assert_allclose(got[~empty], plain[~empty], **BF16_TOL)
+
+
+# clusters the card holds at once (the occupancy query's answers on an
+# H100 at S = 1024: D = 256 one 150 KB block a SM, D = 64 three)
+OCCUPANCY = {256: {1: 132, 2: 66, 4: 30, 8: 15, 16: 14},
+             64: {1: 396, 2: 198, 4: 92, 8: 45, 16: 21},
+             16: {1: 396, 2: 198, 4: 92, 8: 45, 16: 21}}
+
+
+@pytest.mark.parametrize("pairs,S,D,want", [
+    (4, 1024, 256, 8),        # gemma3-1b at B = 4: the portable 8
+    (1, 1024, 256, 8),
+    (8, 1024, 64, 8),         # internvl2-1b at B = 4 (2 KV heads)
+    (16, 1024, 64, 8),        # seamless-m4t-medium at B = 1
+    (64, 1024, 64, 4),        # and at B = 4: 45 clusters of 8 fit
+    (16, 1024, 256, 4),       # 15 clusters of 8 fit at D = 256
+    (2, 4096, 256, 16),       # 8 ranks would loop over tiles
+    (1, 4096, 16, 8),         # at most D / 2
+    (1000, 1024, 256, 1),     # more than fit at any size
+])
+def test_decode_cluster_size_rule(pairs, S, D, want):
+    assert decode_mod.cluster_size(
+        pairs, S, D, lambda c: OCCUPANCY[D][c]) == want
+
+
+@pytest.mark.parametrize("cluster", decode_mod.CLUSTERS)
+@pytest.mark.parametrize("S", [1, 16, 64, 100, 512, 1024, 4096])
+def test_decode_rank_rows_cover_each_valid_row_once(S, cluster):
+    """For every length 0..S (and one past S, clamped): the ranks' rows,
+    in rank order, are [0, length) exactly, each rank's range starts on a
+    16-row piece, and none holds more rows than ``tile_rows`` allows a
+    tile times the tiles it loops over; the ranks' loads stay within the
+    valid rows."""
+    tile = decode_mod.tile_rows(S, cluster)
+    assert tile % 16 == 0 and 16 <= tile <= decode_mod.TC_MAX_TILE
+    for length in range(S + 2):
+        n = min(length, S)
+        ranges = decode_mod.rank_rows(length, S, cluster)
+        assert len(ranges) == cluster
+        rows = [i for lo, hi in ranges for i in range(lo, hi)]
+        assert rows == list(range(n))                    # once, in order
+        pieces = -(-n // 16)
+        for lo, hi in ranges:
+            assert 0 <= lo <= hi <= n and lo % 16 == 0
+            assert hi - lo <= 16 * -(-pieces // cluster)
+        if n:
+            busiest = max(hi - lo for lo, hi in ranges)
+            assert busiest <= tile or S > decode_mod.TC_MAX_TILE * cluster
 
 
 # --------------------------------------------------------------------- #

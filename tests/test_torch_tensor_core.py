@@ -9,7 +9,10 @@
   ``flash_tc_kernel``'s tile loop): every (query, key)
   pair the causal and window masks leave visible lies in exactly one
   loaded KV tile, no loaded tile is wholly masked for its query tile,
-  and the two warpgroups take alternate tiles.
+  and the two warpgroups take alternate tiles.  The same for the fp32
+  CUDA-core kernel's schedule (``_cc_blocks``: 32-row query tiles, the
+  heaviest first under causal masking, the KV tiles of each alternating
+  between the two blocks of a cluster).
 * A test-local PyTorch mirror of that kernel's arithmetic: per 64-row
   query tile, each warpgroup's online softmax (log2 domain, the finite
   mask) over its tiles with P rounded to bf16 before P V, then the two
@@ -314,6 +317,95 @@ def test_flash_tc_schedule_covers_each_visible_pair_once(S, window, causal,
         for kt in kts:                                 # no tile wholly masked
             assert any(_visible(q, k, causal, window) for q in rows
                        for k in range(kt * BKV, min(S, kt * BKV + BKV)))
+
+
+# the CUDA-core (fp32) kernel's query rows a tile, and the blocks (a
+# cluster) that split each tile's KV tiles
+CC_BLOCK_Q = 32
+CC_SPLIT = 2
+
+
+def _cc_block_kv(head_dim):
+    """KV rows a tile of ``flash_fwd_kernel`` (``CcTile<T, D>::BKV``): 32,
+    and 16 at head dim 256, where two 32-row stages would not leave room
+    for two blocks an SM."""
+    return 16 if head_dim == 256 else 32
+
+
+def _cc_blocks(sq, sk, causal, window, head_dim):
+    """``flash_fwd_kernel``'s schedule: the 32-row query tiles in launch
+    order (the last first under causal masking), each with the KV tiles
+    its cluster loads, in order (those the causal and window masks leave
+    partly visible), each with the block of the cluster that takes it (0,
+    1, 0, ...)."""
+    bkv = _cc_block_kv(head_dim)
+    n_qt = -(-sq // CC_BLOCK_Q)
+    n_tiles = -(-sk // bkv)
+    blocks = []
+    for z in range(n_qt):
+        qt = n_qt - 1 - z if causal else z
+        q_lo = qt * CC_BLOCK_Q
+        hi = n_tiles
+        if causal:
+            hi = min(n_tiles, (q_lo + CC_BLOCK_Q - 1) // bkv + 1)
+        lo = 0
+        if window > 0 and q_lo - window + 1 > 0:
+            lo = (q_lo - window + 1) // bkv
+        blocks.append((qt, [(kt, (kt - lo) % CC_SPLIT)
+                            for kt in range(lo, hi)]))
+    return blocks
+
+
+@pytest.mark.parametrize("D", [64, 256])       # 32- and 16-row KV tiles
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 16, 100])
+@pytest.mark.parametrize("S", [1, 33, 64, 100, 257])
+def test_flash_cc_schedule_covers_each_visible_pair_once(S, window, causal,
+                                                          D):
+    """Every query tile is launched once, the last first under causal
+    masking (without a window the heaviest first); every visible (query,
+    key) pair lies in exactly one loaded KV tile of its query tile, no
+    loaded tile is wholly masked, and the two blocks of a cluster take
+    alternate tiles (so their shares differ by at most one)."""
+    BQ, BKV = CC_BLOCK_Q, _cc_block_kv(D)
+    blocks = _cc_blocks(S, S, causal, window, D)
+    order = [qt for qt, _ in blocks]
+    assert sorted(order) == list(range(-(-S // BQ)))
+    if causal:
+        assert order == sorted(order, reverse=True)
+    if causal and not window:
+        loads = [len(listed) for _, listed in blocks]
+        assert loads == sorted(loads, reverse=True)
+    for qt, listed in blocks:
+        kts = [kt for kt, _ in listed]
+        assert kts == sorted(set(kts))                 # each tile once
+        assert [p for _, p in listed] == [i % CC_SPLIT
+                                          for i in range(len(kts))]
+        rows = range(qt * BQ, min(S, qt * BQ + BQ))
+        for q in rows:
+            for k in range(S):
+                if _visible(q, k, causal, window):
+                    assert sum(kt * BKV <= k < kt * BKV + BKV
+                               for kt in kts) == 1
+        for kt in kts:                                 # no tile wholly masked
+            assert any(_visible(q, k, causal, window) for q in rows
+                       for k in range(kt * BKV, min(S, kt * BKV + BKV)))
+
+
+def test_flash_cc_schedule_at_gemma3_1b_model_check():
+    """At gemma3-1b's fp32 model check (B = 1, S = 1024, 4 heads, causal)
+    the CUDA-core grid has at least 128 blocks, and its heaviest block's
+    chain (query rows x keys it loads) is at most half that of 64-row
+    query tiles in one block (a quarter, with the KV tiles split over two
+    blocks)."""
+    S, H = 1024, 4
+    blocks = _cc_blocks(S, S, True, 0, 256)
+    assert len(blocks) * CC_SPLIT * H >= 128
+    qt, listed = blocks[0]
+    tiles = max(sum(p == part for _, p in listed)
+                for part in range(CC_SPLIT))
+    heaviest = tiles * CC_BLOCK_Q * _cc_block_kv(256)
+    assert qt == S // CC_BLOCK_Q - 1 and heaviest == 64 * S // 4
 
 
 def _flash_tc_model(q, k, v, *, causal, window):

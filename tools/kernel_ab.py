@@ -1,0 +1,238 @@
+#!/usr/bin/env python3
+"""Time two checkouts' decode and flash kernels at the same shapes, in
+turns, on one card.
+
+Run from the root of a checkout on a machine with a CUDA card::
+
+    python3 tools/kernel_ab.py --parent DIR [--calls LOG] [--out FILE]
+
+``DIR`` is the root of another checkout (for instance the parent commit,
+unpacked with ``git archive`` into a directory that ``.gitignore``
+lists).  The script runs itself as a worker four times, each in a fresh
+process that imports one checkout's ``repro_torch``, builds its kernels
+and times them: the other checkout, this one, this one, the other.
+Every worker times, on the same seeded inputs:
+
+* ``decode_attention`` forced onto its tensor-core route (bf16) at the
+  serving shapes :data:`DECODE_SHAPES` and, with ``--calls``, at every
+  shape the serving phases of a ``chip_smoke.py`` log called it with
+  (its ``kernels`` line's ``calls_by_shape`` of the decode row; as many
+  valid rows as there, at most S), so the call-weighted total can be
+  compared;
+* ``flash_attention`` forced onto its CUDA-core route (fp32) at
+  :data:`FLASH_SHAPES`: row 1a's shape and the fp32 model checks'.
+
+Each time is ``chip_smoke.time_ms`` (device ms by CUDA events, host ms
+beside) and the profiler's kernel records per call.  A worker of a
+checkout whose decode runs as one cluster launch also times it at every
+cluster size it is built for and asks the library how many clusters of
+each size the card holds at once.
+The result, one JSON object with every worker's times, the means per
+checkout and the ratio of the means, goes to standard output (and to
+``--out``).  Needs no network; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+# (B, S, H, Hkv, D): row 2a (gemma3-1b's global cache) at B = 4 and 1,
+# recurrentgemma-9b's group of 16, the head-dim-64 paths (16 on 16, 14
+# on 2) at B = 1 and 4; chip_smoke.DECODE_VALID valid rows, as the serve
+# phase leaves them
+DECODE_SHAPES = ((4, 1024, 4, 1, 256), (1, 1024, 4, 1, 256),
+                 (1, 1024, 16, 1, 256), (4, 1024, 16, 1, 256),
+                 (1, 1024, 16, 16, 64), (4, 1024, 16, 16, 64),
+                 (1, 1024, 14, 2, 64), (4, 1024, 14, 2, 64))
+# (B, S, H, Hkv, D, window), causal: row 1a's shape in fp32, gemma3-1b's
+# fp32 model check (1024 positions, global and its 512 window), the
+# head-dim-64 model checks (1000 positions), recurrentgemma-9b's (2100
+# positions, window 2048)
+FLASH_SHAPES = ((4, 512, 4, 1, 256, 0), (1, 1024, 4, 1, 256, 0),
+                (1, 1024, 4, 1, 256, 512), (1, 1000, 16, 16, 64, 0),
+                (1, 1000, 14, 2, 64, 0), (1, 2100, 16, 1, 256, 2048))
+
+
+def _serving_calls(log: Path) -> list:
+    """The decode row's ``calls_by_shape`` from a chip_smoke log."""
+    for line in log.read_text().splitlines():
+        if line.startswith('{"kernels"'):
+            rows = json.loads(line)["kernels"]
+            return next(r["calls_by_shape"] for r in rows
+                        if r["name"] == "decode_attention")
+    raise SystemExit(f"kernel_ab: no kernels line in {log}")
+
+
+def worker(src: str, calls: list) -> dict:
+    import torch
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, src)
+    import chip_smoke as cs
+    from repro_torch.kernels import KERNEL_STATS, build, ref
+    from repro_torch.kernels import decode_attention as decode_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_s = build.build_kernels()
+    dev = torch.device("cuda")
+
+    def inputs(seed, shapes, dtype):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in shapes]
+
+    sizes = getattr(decode_mod, "CLUSTERS", ())
+    decode = []
+    shapes = [(B, S, H, Hkv, D, None) for B, S, H, Hkv, D in DECODE_SHAPES]
+    shapes += [(*(c["shape"][x] for x in ("B", "S", "H", "Hkv", "D")),
+                c["calls"]) for c in calls if c["dtype"] == "bfloat16"]
+    for B, S, H, Hkv, D, n_calls in shapes:
+        q, kc, vc = inputs(B + S + H + D, ((B, 1, H, D), (B, S, Hkv, D),
+                                           (B, S, Hkv, D)), torch.bfloat16)
+        valid = min(cs.DECODE_VALID, S)
+        lengths = torch.full((B,), valid, dtype=torch.int32, device=dev)
+        want = ref.decode_attention_ref(q, kc, vc, lengths)
+
+        def call(**kw):
+            return decode_mod.launch(q, kc, vc, lengths, force="tensor_core",
+                                     **kw)
+        err = float((call().float() - want.float()).abs().max())
+        t = cs.time_ms(torch, call, iters=50)
+        rec = cs._kernel_records(torch, call,
+                                 KERNEL_STATS["decode_attention"])
+        row = {"shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+                         "valid": valid}, "calls": n_calls,
+               "ms": t["ms"], "host_ms": t["host_ms"],
+               "covered": t["covered"], "max_abs_err": err,
+               "profiler_ms": sum(rec["kernels_ms"].values()),
+               "kernels_ms": rec["kernels_ms"],
+               "records_per_call": rec["records_per_call"],
+               "launches_per_call": rec["launches_per_call"]}
+        if sizes:
+            # the size the shape takes, and every size the kernel has
+            row["cluster"] = decode_mod._cluster_for(B * Hkv, S, D)
+            row["ms_by_cluster"] = {
+                c: cs.time_ms(torch, lambda c=c: call(cluster=c),
+                              iters=50)["ms"]
+                for c in sizes if c <= D // 2}
+        decode.append(row)
+    flash = []
+    for B, S, H, Hkv, D, window in FLASH_SHAPES:
+        q, k, v = inputs(B + S + H + D + window,
+                         ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)),
+                         torch.float32)
+
+        def call():
+            return flash_mod.launch(q, k, v, causal=True, window=window,
+                                    force="cuda_core")
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        err = float((call() - want).abs().max())
+        t = cs.time_ms(torch, call, iters=10)
+        rec = cs._kernel_records(torch, call, iters=10)
+        flash.append({"shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+                                "window": window},
+                      "ms": t["ms"], "host_ms": t["host_ms"],
+                      "covered": t["covered"], "max_abs_err": err,
+                      "profiler_ms": sum(rec["kernels_ms"].values())})
+        del q, k, v, want
+    occupancy = {}
+    lib = build.library("decode_attention")
+    if sizes:
+        for D in (64, 256):
+            for S in (512, 1024, 4096):
+                for c in sizes:
+                    occupancy[f"D{D}/S{S}/cluster{c}"] = \
+                        lib.decode_attention_max_active_clusters(D, S, c)
+    return {"src": src, "build_s": build_s, "decode": decode,
+            "flash": flash, "max_active_clusters": occupancy,
+            "ptxas": {n: [ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln
+                          or "Function properties for" in ln]
+                      for n, log in build.build_log.items()}}
+
+
+def _mean(xs):
+    return sum(xs) / len(xs)
+
+
+def summarize(runs: dict) -> dict:
+    """Means per checkout of each shape's ms, host ms and profiler ms, the
+    ratio this / other, and the call-weighted decode totals."""
+    out = {"decode": [], "flash": []}
+    for kind in ("decode", "flash"):
+        for i, row in enumerate(runs["this"][0][kind]):
+            entry = {"shape": row["shape"]}
+            if kind == "decode":
+                entry["calls"] = row["calls"]
+                entry["cluster"] = row.get("cluster")
+                entry["this_ms_by_cluster"] = [r[kind][i].get("ms_by_cluster")
+                                               for r in runs["this"]]
+            for tree in ("other", "this"):
+                rs = [r[kind][i] for r in runs[tree]]
+                entry[tree] = {m: [r[m] for r in rs]
+                               for m in ("ms", "host_ms", "profiler_ms")}
+                entry[tree]["mean_ms"] = _mean(entry[tree]["ms"])
+            entry["this_over_other"] = (entry["this"]["mean_ms"]
+                                        / entry["other"]["mean_ms"])
+            out[kind].append(entry)
+    weighted = [e for e in out["decode"] if e["calls"]]
+    if weighted:
+        out["decode_weighted_ms"] = {
+            tree: sum(e["calls"] * e[tree]["mean_ms"] for e in weighted)
+            for tree in ("other", "this")}
+        out["decode_weighted_calls"] = sum(e["calls"] for e in weighted)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="root of the checkout to compare with")
+    ap.add_argument("--calls", type=Path,
+                    help="a chip_smoke.py log: time decode at its serving "
+                         "calls' shapes too")
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--calls-json", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker, json.loads(args.calls_json))))
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if not args.parent:
+        ap.error("--parent is required")
+    calls = _serving_calls(args.calls) if args.calls else []
+    trees = {"other": str(Path(args.parent).resolve() / "src"),
+             "this": str(ROOT / "src")}
+    runs = {"other": [], "this": []}
+    for tree in ("other", "this", "this", "other"):
+        proc = subprocess.run(
+            [sys.executable, __file__, "--worker", trees[tree],
+             "--calls-json", json.dumps(calls)],
+            capture_output=True, text=True, timeout=1200,
+            env={**os.environ, "PYTHONPATH": ""})
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            return 1
+        runs[tree].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    result = {"card": smi, "order": ["other", "this", "this", "other"],
+              "summary": summarize(runs), "runs": runs}
+    text = json.dumps(result)
+    if args.out:
+        args.out.write_text(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
