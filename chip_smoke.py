@@ -77,8 +77,12 @@ non-zero:
    of ``ms``; each route's kernel duration from ``torch.profiler`` is
    printed beside its ``ms`` at the timed shapes.  For each SSD route at
    the serving shapes the profiler's kernel records per call must equal
-   the launches the wrapper counted, and ``KERNELS_PER_CALL`` (three
-   passes on either route); for each decode route the launches counted
+   the launches the wrapper counted, and ``kernels_per_call`` (one
+   cluster launch on the tensor cores, three passes on the CUDA cores);
+   the tensor cores' cluster size and the clusters of that size the card
+   holds at once (``ssd_scan_tc_cluster``,
+   ``ssd_scan_max_active_clusters``) are printed per timed shape; for
+   each decode route the launches counted
    must be one a call on the tensor cores (the cluster merges on chip)
    and two past one split on the CUDA cores, and the profiler's records
    per call, rounded, the same.  The clusters of each size the card
@@ -684,6 +688,22 @@ def _ssd_bound(dt: str, B, S, H, G, P, N, Q):
     return _bound(nbytes, flops, dt)
 
 
+def _ssd_cluster(torch, dt: str, B, S, H, P, N, Q) -> dict:
+    """The tensor-core cluster kernel's size at this shape and the
+    clusters of that size the card holds at once (empty off that
+    kernel)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    if ssd_mod.kernels_per_call(dt, P, N, Q) != ssd_mod.CLUSTER_KERNELS:
+        return {}
+    lib = build.library("ssd_scan")
+    c = lib.ssd_scan_tc_cluster(B, S, H, P, N, Q)
+    return {"cluster": c, "tiles": ssd_mod.cluster_tiles(P, N, Q),
+            "clusters": B * H, "max_active_clusters":
+            lib.ssd_scan_max_active_clusters(P, N, Q, c,
+                                             int(S // Q > c))}
+
+
 def ssd_calls_by_shape(torch, calls) -> list:
     """The SSD timed at each shape the serving paths called it with
     (``calls``: the wrapper's shape key -> calls), on fresh inputs
@@ -711,7 +731,8 @@ def ssd_calls_by_shape(torch, calls) -> list:
                      "dtype": dt, "route": ssd_mod.route(dt, P, N, Q),
                      "calls": n, "ms": t["ms"], "host_ms": t["host_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "calls_x_excess_ms": n * (t["ms"] - bound_ms)})
+                     "calls_x_excess_ms": n * (t["ms"] - bound_ms),
+                     **_ssd_cluster(torch, dt, B, S, H, P, N, Q)})
         del args
     return rows
 
@@ -1191,11 +1212,13 @@ def phase_kernels(torch):
     # batches its prefill runner rounds to); in bf16 also 16 chunks over
     # 6144 blocks (far more than the card holds at once), a chunk of 128,
     # P = 80, and N = 256 at a chunk of 128 and N = 272 (the largest
-    # blocks the tensor cores take); the plain version is the sequential
+    # blocks of one tile), P = 128 (two row tiles) and N = 512 (two column
+    # tiles); the plain version is the sequential
     # recurrence, y and the final state (evaluated in fp64 for fp32)
     ssd_wide = ((8, 1024, 48, 64, 1, 128, 64), (2, 2048, 24, 64, 2, 64, 128),
                 (2, 256, 4, 80, 1, 64, 64), (1, 256, 4, 64, 1, 256, 128),
-                (1, 256, 4, 64, 1, 272, 64))
+                (1, 256, 4, 64, 1, 272, 64), (2, 256, 4, 128, 1, 64, 64),
+                (1, 256, 4, 64, 1, 512, 32))
     for dt in TOL:
         for B, S, H, P, G, N, Q in ((1, 64, 2, 8, 1, 16, 16),
                                     (2, 128, 4, 16, 1, 32, 32),
@@ -1269,11 +1292,11 @@ def phase_kernels(torch):
                         "kernel": "ssd_scan", "shape": shape, "dtype": dt,
                         "route": r,
                         "check": "profiler kernel records == launches "
-                                 "counted == KERNELS_PER_CALL",
+                                 "counted == kernels_per_call",
                         **profiled[r],
                         "ok": profiled[r]["records_per_call"]
                         == profiled[r]["launches_per_call"]
-                        == ssd_mod.KERNELS_PER_CALL})
+                        == ssd_mod.kernels_per_call(dt, P, N, Q, r)})
                 timings["ssd_scan"].append({
                     "shape": shape, "dtype": dt, "route": rule,
                     "max_abs_err": max(err, err_h), "max_abs_err_y": err,
@@ -1291,7 +1314,8 @@ def phase_kernels(torch):
                     "plain_ms": time_ms(torch, lambda: ref.ssd_scan_ref(
                         *args), iters=3, warmup=1)["ms"],
                     "library_ms": None,
-                    "bound_ms": bound_ms, "bound_by": bound_by})
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    **_ssd_cluster(torch, dt, B, S, H, P, N, Q)})
 
     # RG-LRU: tests/test_kernels.py grid, S of 1 and 7 (inside one
     # chunk), a partial last chunk (S = 97) and group (S = 520), partial

@@ -9,8 +9,11 @@
   of blocks a (batch row, KV head), merged in distributed shared
   memory), CUDA cores for fp32, head dim 8 and larger groups (64-row
   splits and a combine)
-* ssd_scan — Mamba2 chunked SSD scan with its final state, CUDA: three
-  tensor-core passes for bf16, three CUDA-core passes for fp32
+* ssd_scan — Mamba2 chunked SSD scan with its final state, CUDA: tensor
+  cores (mma.sync) for bf16 as one launch (a cluster of blocks a (batch
+  row, head), the state handed on in distributed shared memory, in
+  tiles where one block would not hold it), three CUDA-core passes for
+  fp32
 * rglru_scan — RG-LRU linear recurrence over time, CUDA: one chunked
   scan for every shape
 

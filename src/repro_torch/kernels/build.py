@@ -171,6 +171,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
         lib.ssd_scan_blocks_per_sm.argtypes = [i, i, i, i]
         lib.ssd_scan_blocks_per_sm.restype = i
+        lib.ssd_scan_tc_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, i, i, p]
+        lib.ssd_scan_tc_fwd.restype = i
+        lib.ssd_scan_tc_cluster.argtypes = [i, i, i, i, i, i]
+        lib.ssd_scan_tc_cluster.restype = i
+        lib.ssd_scan_max_active_clusters.argtypes = [i, i, i, i, i]
+        lib.ssd_scan_max_active_clusters.restype = i
+        lib.ssd_scan_tc_smem_bytes.argtypes = [i, i, i, i, i]
+        lib.ssd_scan_tc_smem_bytes.restype = ctypes.c_longlong
     elif name == "rglru_scan":
         lib.rglru_scan_fwd.argtypes = [p, p, p, i, i, i, i, p]
         lib.rglru_scan_fwd.restype = i

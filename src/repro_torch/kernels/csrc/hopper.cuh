@@ -2,8 +2,8 @@
 // products (wgmma) and the shared-memory descriptors they read,
 // the swizzled tile layout that TMA writes and wgmma reads, mbarriers, TMA
 // tile loads (flash), and thread-block clusters: their barrier and
-// stores to a peer block's shared memory (decode, and flash's fp32
-// route).
+// stores to a peer block's shared memory (decode, the SSD's bf16 route,
+// and flash's fp32 route).
 //
 // Tile layout.  A tile of R rows by C bf16 columns is stored as C / W
 // column blocks, each R rows of W elements (2W = 128, 64 or 32 bytes a
@@ -218,6 +218,11 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// Arrive with release: shared-memory writes before it, to any block of
+// the cluster, are visible to every block after the matching wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
 // The whole barrier: shared-memory writes before it, to any block of the
 // cluster (release), are visible to every block after it (acquire).
 __device__ __forceinline__ void cluster_sync() {
@@ -240,6 +245,17 @@ __device__ __forceinline__ void peer_store(uint32_t a, float v) {
 __device__ __forceinline__ void peer_store2(uint32_t a, float2 v) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
                :: "r"(a), "f"(v.x), "f"(v.y) : "memory");
+}
+
+__device__ __forceinline__ void peer_store4(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void peer_store_b128(uint32_t a, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // One box of a 4-d tensor map into shared memory, completing on `bar`;

@@ -16,11 +16,15 @@ shapes (fp32, 2 heads on 1, D = 16 and 8, B up to 8 over 64 slots), at
 GQA groups 10, 17, 24 and 32 and at lengths 0, 1, 64, 65 and S (a row
 of length 0 is 0, as from the TPU kernel), and the SSD at a chunk of
 40; every route of decode and the SSD is forced and counted (an SSD
-call is three kernels; a decode call one on the tensor cores, two past
-one split on the CUDA cores).  The bf16 tensor-core kernels run at every
+call is one cluster launch on the tensor cores and three passes on the
+CUDA cores; a decode call one on the tensor cores, two past one split on
+the CUDA cores).  The bf16 tensor-core kernels run at every
 head dim 16-256 (GQA groups 1, 7 and 16, windows, partial tiles) and,
-for the SSD, at one chunk, at 16 chunks over many more blocks than the
-card holds at once, and at chunk 128 and N up to 272; decode's cluster
+for the SSD, at mamba2-130m's serving calls, at one chunk, 5, 12, 16
+and 32 chunks, at chunk 128, N up to 272 and with the state in tiles (P
+= 96 and 128 in row tiles, N = 512 in column tiles, P = N = 256 in
+both); the SSD's cluster kernel at every cluster size, one kernel record
+a call; decode's cluster
 kernel also at lengths below the cluster size, mid-tile and over 4096
 slots (several tiles a rank), at both cluster sizes.  The fp32 flash
 kernel (the CUDA-core route) runs at every head dim, with windows,
@@ -244,7 +248,9 @@ def test_cuda_ssd_scan_routes_match_plain(cuda, B, S, H, P, G, N, chunk,
     for r in _routes(rule):
         before = stats.launches_by_route.get(r, 0)
         y, h = ssd_mod.launch(*args, chunk=chunk, force=r)
-        assert stats.launches_by_route[r] - before == 3   # three passes
+        # three passes, or the tensor cores' one cluster launch
+        assert stats.launches_by_route[r] - before == \
+            ssd_mod.kernels_per_call(dtype, P, N, chunk, r)
         _close(y.cpu(), want_y.cpu().float().numpy(), dtype)
         _close(h.cpu(), want_h.cpu().numpy(), dtype)
         if r == rule:
@@ -273,6 +279,13 @@ def test_cuda_flash_tensor_core_head_dims_groups_windows(cuda, D, H, Hkv,
 
 SSD_TC_GRID = [
     # B, S, H, P, G, N, chunk
+    # mamba2-130m's serving calls: clusters of 8, 4 and 2 on an H100
+    (1, 512, 24, 64, 1, 128, 64),
+    (2, 512, 24, 64, 1, 128, 64),
+    (4, 512, 24, 64, 1, 128, 64),
+    (1, 320, 24, 64, 1, 128, 64),     # 5 chunks: idle ranks
+    (2, 768, 24, 64, 1, 128, 64),     # 12 chunks: a partial round
+    (1, 2048, 24, 64, 1, 128, 64),    # 32 chunks: several rounds
     (2, 64, 4, 64, 1, 128, 64),       # one chunk
     (8, 1024, 48, 64, 1, 128, 64),    # 16 chunks, 6144 blocks
     (2, 2048, 24, 64, 2, 128, 128),   # a chunk of 128
@@ -281,6 +294,12 @@ SSD_TC_GRID = [
     (1, 256, 4, 64, 1, 256, 128),     # N = 256 at a chunk of 128
     (1, 256, 4, 64, 1, 272, 64),      # N past 256
     (3, 192, 6, 32, 3, 48, 48),       # chunk 48, N 48, groups of 2
+    # the state in tiles
+    (2, 64, 4, 128, 1, 16, 16),       # P = 128: two row tiles
+    (2, 256, 4, 96, 1, 16, 64),       # P = 96: two row tiles of 48
+    (1, 64, 2, 64, 1, 512, 16),       # N = 512: two column tiles
+    (1, 512, 4, 256, 1, 256, 64),     # 4 x 2 tiles, one round
+    (1, 1024, 2, 256, 1, 256, 64),    # 4 x 2 tiles, two rounds
 ]
 
 
@@ -299,6 +318,65 @@ def test_cuda_ssd_tensor_core_shapes_match_plain(cuda, B, S, H, P, G, N,
     y, h = ssd_mod.launch(*args, chunk=chunk, force="tensor_core")
     _close(y.cpu(), want_y.cpu().float().numpy(), "bfloat16")
     _close(h.cpu(), want_h.cpu().numpy(), "bfloat16")
+
+
+# mamba2-130m's serving shape at B = 1 and 4 (8 chunks), and 12 chunks
+SSD_CLUSTER_CASES = [(B, S, c) for B, S in ((1, 512), (4, 512), (2, 768))
+                     for c in (0, 1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("B,S,cluster", SSD_CLUSTER_CASES)
+def test_cuda_ssd_tensor_core_cluster_matches_plain(cuda, B, S, cluster):
+    """The one-launch cluster kernel at every size it launches (0: the
+    rule's), against the plain version: one launch and one kernel record a
+    call, and the same bits from the route chosen by shape."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    H, P, G, N, chunk = 24, 64, 1, 128, 64
+    x, B_in, C_in, dt = _inputs(11, (B, S, H, P), (B, S, G, N),
+                                (B, S, G, N), (B, S, H))
+    x, B_in, C_in = (_t(a, "bfloat16").to(cuda) for a in (x, B_in, C_in))
+    dt = torch.nn.functional.softplus(_t(dt, "float32")).to(cuda)
+    a_log = torch.log(torch.linspace(1.0, 4.0, H)).to(cuda)
+    args = (x, dt, a_log, B_in, C_in)
+    want_y, want_h = ref.ssd_scan_ref(*args)
+    stats = KERNEL_STATS["ssd_scan"]
+    before = stats.launches_by_route.get("tensor_core", 0)
+    y, h = ssd_mod.launch(*args, chunk=chunk, force="tensor_core",
+                          cluster=cluster)
+    assert stats.launches_by_route["tensor_core"] - before == 1
+    _close(y.cpu(), want_y.cpu().float().numpy(), "bfloat16")
+    _close(h.cpu(), want_h.cpu().numpy(), "bfloat16")
+    lib = build.library("ssd_scan")
+    chosen = lib.ssd_scan_tc_cluster(B, S, H, P, N, chunk)
+    held = {c: lib.ssd_scan_max_active_clusters(P, N, chunk, c,
+                                                int(S // chunk > c))
+            for c in ssd_mod.CLUSTERS}
+    # the library's rule is the Python plan's on this card's occupancy
+    assert chosen == ssd_mod.cluster_plan(
+        B, S, H, P, N, chunk, lambda c, carry: lib.ssd_scan_max_active_clusters(
+            P, N, chunk, c, int(carry)))["cluster"]
+    assert all(n > 0 for n in held.values()), held
+    if cluster in (0, chosen):
+        y0, h0 = ssd_mod.ssd_scan(*args, chunk=chunk)
+        assert torch.equal(y, y0) and torch.equal(h, h0)
+    assert _kernel_records(
+        lambda: ssd_mod.launch(*args, chunk=chunk, force="tensor_core",
+                               cluster=cluster), "ssd_", 3) == 3
+
+
+def test_cuda_ssd_cluster_smem_matches_the_python_mirror(cuda):
+    """The library's cluster block bytes are ``cluster_smem_bytes``'s."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    lib = build.library("ssd_scan")
+    for P, N, chunk in ((64, 128, 64), (64, 256, 128), (80, 64, 128),
+                        (64, 272, 64), (32, 48, 48), (128, 16, 16),
+                        (64, 512, 16), (256, 256, 64)):
+        for c in ssd_mod.CLUSTERS:
+            for carry in (False, True):
+                assert lib.ssd_scan_tc_smem_bytes(P, N, chunk, c, carry) == \
+                    ssd_mod.cluster_smem_bytes(P, N, chunk, c, carry)
 
 
 DECODE_EDGES = (1, 64, 65)          # one row, one split, one split + 1

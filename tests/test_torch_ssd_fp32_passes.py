@@ -261,18 +261,20 @@ class _FakeLib:
         return 0
 
 
-@pytest.mark.parametrize("dtype,P,N,chunk,taken", [
-    ("float32", 64, 128, 64, "cuda_core"),     # mamba2-130m in fp32
-    ("bfloat16", 8, 16, 16, "cuda_core"),      # P = 8
-    ("bfloat16", 16, 32, 32, "tensor_core"),
-    ("bfloat16", 80, 64, 64, "tensor_core"),   # P = 80
+@pytest.mark.parametrize("dtype,P,N,chunk,taken,kernels", [
+    ("float32", 64, 128, 64, "cuda_core", 3),     # mamba2-130m in fp32
+    ("bfloat16", 8, 16, 16, "cuda_core", 3),      # P = 8
+    ("bfloat16", 16, 32, 32, "tensor_core", 1),   # one cluster launch
+    ("bfloat16", 80, 64, 64, "tensor_core", 1),   # P = 80
+    ("bfloat16", 64, 128, 64, "tensor_core", 1),  # mamba2-130m
+    ("bfloat16", 128, 16, 16, "tensor_core", 1),  # two row tiles, one launch
 ])
 def test_wrapper_hands_each_route_its_workspaces(monkeypatch, dtype, P, N,
-                                                 chunk, taken):
-    """The C entry gets three workspaces on both routes, sized as the
-    passes index them (h_in fp32 on the CUDA cores, a bf16 pair on the
-    tensor cores), and each call counts three launches of its route and
-    one call of its shape."""
+                                                 chunk, taken, kernels):
+    """The C entry gets three fp32 workspaces where the CUDA cores' three
+    passes run, sized as the passes index them, and none for the tensor
+    cores' one cluster launch; each call counts its kernels (three
+    passes, or one launch) on its route and one call of its shape."""
     lib = _FakeLib()
     allocated = []
     real_empty = torch.empty
@@ -300,14 +302,15 @@ def test_wrapper_hands_each_route_its_workspaces(monkeypatch, dtype, P, N,
     args = lib.calls[-1]
     ws, h_in, cs_end = args[7:10]
     by_ptr = {ptr: (shape, dt) for shape, dt, ptr in allocated}
-    assert by_ptr[ws] == ((Bb, H, nc, P, N), torch.float32)
-    assert by_ptr[cs_end] == ((Bb, H, nc), torch.float32)
-    assert by_ptr[h_in] == (((Bb, H, nc, P, N), torch.float32)
-                            if taken == "cuda_core" else
-                            ((Bb, H, nc, 2, P, N), torch.bfloat16))
+    if kernels == 1:
+        assert (ws, h_in, cs_end) == (None, None, None)
+    else:
+        assert by_ptr[ws] == ((Bb, H, nc, P, N), torch.float32)
+        assert by_ptr[cs_end] == ((Bb, H, nc), torch.float32)
+        assert by_ptr[h_in] == ((Bb, H, nc, P, N), torch.float32)
     assert args[10:17] == (Bb, S, H, G, P, N, chunk)
     assert args[17:19] == (build.DTYPE_CODES[dtype], build.ROUTE_BY_SHAPE)
     after = dict(stats.launches_by_route)
-    assert ssd_mod.KERNELS_PER_CALL == 3
-    assert after.get(taken, 0) - before.get(taken, 0) == 3
+    assert ssd_mod.kernels_per_call(dtype, P, N, chunk) == kernels
+    assert after.get(taken, 0) - before.get(taken, 0) == kernels
     assert stats.calls_by_shape[key] - calls_before == 1

@@ -20,14 +20,17 @@
   package's ``flash_attention`` (the Pallas kernel in interpret mode) at
   bf16's tolerance, at sequence lengths that are not multiples of the
   tiles.
-* A test-local PyTorch mirror of the SSD tensor-core route's three passes
-  (chunk states, the state pass, the chunk scan) with the kernels'
-  rounding points: x·w, the masked score matrix and the state entering a
+* A test-local PyTorch model of the SSD tensor-core route's arithmetic as
+  three passes (chunk states, the state pass, the chunk scan) with the
+  kernel's rounding points: x·w, the masked score matrix and the state entering a
   chunk each carried as a bf16 pair hi + lo.  It is held against
   ``ref.ssd_scan_ref`` and the JAX package's ``ssd_scan`` (the Pallas
   kernel in interpret mode, as ``tests/test_kernels.py`` runs it) at the
   grid's small shapes and at mamba2-130m's widths, with bf16's tolerance
-  (atol = rtol = 2e-2) on y and the final state.
+  (atol = rtol = 2e-2) on y and the final state.  The cluster kernel's
+  schedule (``ssd_mod.cluster_plan``: cluster size, rounds, state tiles,
+  each rank's rows) produces every entering state once, and its sliced,
+  tiled exchange equals the three-pass model bit for bit.
 
 The kernels themselves run only on a card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
@@ -99,19 +102,88 @@ def test_flash_route_rule(dtype, D, sq, sk, want):
     ("bfloat16", 256, 512, 128, "cuda_core"),   # over one SM's memory
     ("bfloat16", 80, 64, 128, "tensor_core"),   # P = 80
     ("bfloat16", 64, 192, 128, "tensor_core"),
-    ("bfloat16", 64, 256, 128, "tensor_core"),  # 223,232 bytes a block
+    ("bfloat16", 64, 256, 128, "tensor_core"),  # 231,968 bytes a block
     ("bfloat16", 64, 272, 64, "tensor_core"),   # N past 256
+    ("bfloat16", 128, 16, 16, "tensor_core"),   # P = 128: two row tiles
+    ("bfloat16", 64, 512, 16, "tensor_core"),   # N = 512: two column tiles
+    ("bfloat16", 256, 256, 64, "tensor_core"),  # 4 x 2 tiles
     ("float32", 64, 128, 64, "cuda_core"),
 ])
 def test_ssd_route_rule(dtype, P, N, chunk, want):
     assert ssd_mod.route(dtype, P, N, chunk) == want
 
 
+@pytest.mark.parametrize("P,N,chunk,tiles", [
+    (64, 128, 64, (64, 128)),       # mamba2-130m: the state is one tile
+    (64, 128, 128, (64, 128)),
+    (80, 64, 64, (48, 64)), (80, 64, 128, (80, 64)),
+    (64, 256, 64, (64, 256)), (64, 256, 128, (64, 256)),
+    (64, 272, 64, (64, 272)),
+    (32, 48, 48, (32, 48)), (16, 16, 16, (16, 16)),
+    (96, 16, 64, (48, 16)),         # 2 column pairs a warp at chunk <= 64
+    (112, 16, 64, (64, 16)),        # row tiles of 64 and 48
+    (96, 16, 128, (48, 16)),        # 5 pairs at one warp a slab
+    (128, 16, 16, (64, 16)),
+    (64, 512, 16, (64, 256)),       # the increments of N = 512 in halves
+    (64, 512, 64, (64, 128)),
+    (256, 256, 64, (64, 128)),
+])
+def test_ssd_tensor_core_shapes_take_one_launch_and_their_tiles(P, N, chunk,
+                                                               tiles):
+    """Every shape the tensor cores take runs as one cluster launch, its
+    state cut into the fewest row tiles a slab's warps hold in registers
+    and the fewest column tiles whose block fits an SM; chosen by
+    shape."""
+    assert ssd_mod.route("bfloat16", P, N, chunk) == "tensor_core"
+    assert ssd_mod.cluster_tiles(P, N, chunk) == tiles
+    assert ssd_mod.tc_smem_bytes(P, N, chunk) <= build.MAX_SMEM_BYTES
+    assert ssd_mod.kernels_per_call("bfloat16", P, N, chunk) == 1
+    assert ssd_mod.kernels_per_call("bfloat16", P, N, chunk,
+                                    "cuda_core") == 3
+    assert ssd_mod.kernels_per_call("float32", P, N, chunk) == 3
+
+
+def _passes_smem_bytes(P, N, chunk):
+    """The larger block of the three tensor-core passes the cluster
+    kernel replaced, whose fit was the route's rule before it."""
+    state = 16 * chunk + 2 * (chunk * (N + 8) + 2 * chunk * (P + 8))
+    scan = 16 * chunk + 2 * (2 * chunk * (N + 8) + chunk * (P + 8)
+                             + 2 * P * (N + 8))
+    return max(state, scan)
+
+
+def test_ssd_tensor_cores_keep_every_shape_the_passes_took():
+    """Every shape the three passes took (multiples of 16, chunk <= 128,
+    their blocks within an SM) has a tiling whose cluster block fits,
+    so it stays on the tensor cores."""
+    for chunk in range(16, 129, 16):
+        for P in range(16, 1041, 16):
+            for N in range(16, 1041, 16):
+                if _passes_smem_bytes(P, N, chunk) <= build.MAX_SMEM_BYTES:
+                    assert ssd_mod.route("bfloat16", P, N, chunk) == \
+                        "tensor_core", (P, N, chunk)
+
+
 def test_ssd_tensor_core_shared_memory_at_the_serving_shape():
-    # chunk scan: 16 Q + 2 (2 Q (N+8) + Q (P+8) + 2 P (N+8)) bytes
-    assert ssd_mod.tc_smem_bytes(64, 128, 64) == \
-        16 * 64 + 2 * (2 * 64 * 136 + 64 * 72 + 2 * 64 * 136)
-    assert ssd_mod.tc_smem_bytes(64, 128, 64) <= build.MAX_SMEM_BYTES
+    # the cluster block: cs (fp64), dt, exp(cs), w, 8 cs_end; x (Q x
+    # P+8), C (Q x N+8), B or h_in's pair (max(Q, 2P) x N+8) in bf16; the
+    # round's increments (P x N+8 fp32); the carry (P / C x N fp32)
+    Q, P, N = 64, 64, 128
+    base = (20 * Q + 32 + 2 * Q * (P + 8) + 2 * Q * (N + 8)
+            + 2 * 2 * P * (N + 8) + 4 * P * (N + 8))
+    assert ssd_mod.cluster_tiles(P, N, Q) == (P, N)
+    assert ssd_mod.cluster_smem_bytes(P, N, Q, 8, False) == base == 97_568
+    assert ssd_mod.cluster_smem_bytes(P, N, Q, 4, True) == \
+        base + 4 * 16 * N
+    assert ssd_mod.tc_smem_bytes(P, N, Q) == base + 4 * 8 * N
+    assert ssd_mod.tc_smem_bytes(P, N, Q) <= build.MAX_SMEM_BYTES
+    # tiled (N = 512 at a chunk of 16: two column tiles of 256): B keeps
+    # its buffer and h_in's pair and the increments take a tile each
+    Q, N, NB = 16, 512, 256
+    assert ssd_mod.cluster_tiles(P, N, Q) == (P, NB)
+    assert ssd_mod.cluster_smem_bytes(P, N, Q, 8, False) == (
+        20 * Q + 32 + 2 * Q * (P + 8) + 2 * 2 * Q * (N + 8)
+        + 2 * 2 * P * (NB + 8) + 4 * P * (NB + 8))
 
 
 def test_bf16_cpu_tensors_take_the_plain_route_and_launch_nothing():
@@ -179,10 +251,10 @@ def _single(v):
     return v.bfloat16().float()
 
 
-def _ssd_three_pass(x, dt, a_log, B_in, C_in, *, chunk, carry=_pair):
-    """y (x's dtype) and the final state (fp32) by ``ssd_scan.cu``'s
-    tensor-core passes, in PyTorch; ``carry`` rounds the three operands
-    the kernels compute."""
+def _ssd_chunk_terms(x, dt, a_log, B_in, C_in, *, chunk, carry=_pair):
+    """What every chunk computes before the state passes between chunks:
+    the fp64 cumsum of the fp32 dA, its end, and dS_c = (x o w)^T B with
+    w_j = dt_j exp(cs_end - cs_j), x o w carried by ``carry``."""
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
     nc, Q = S // chunk, chunk
@@ -195,17 +267,16 @@ def _ssd_three_pass(x, dt, a_log, B_in, C_in, *, chunk, carry=_pair):
     # fp64 cumsum of the fp32 dA; the decays' differences in fp64
     cs = torch.cumsum((dtc * A).double(), 2)                  # (B,nc,Q,H)
     cs_end = cs[:, :, -1]
-    # pass 1: dS_c = (x o w)^T B, w_j = dt_j exp(cs_end - cs_j)
     w = torch.exp((cs_end[:, :, None] - cs).float()) * dtc
     dS = torch.einsum("bcqhp,bcqhn->bchpn", carry(xf * w[..., None]), Bc)
-    # pass 2: h_c = exp(cs_end,c) h_{c-1} + dS_c; h_in is the entering state
-    h = torch.zeros(Bb, H, P, N)
-    h_in = []
-    for c in range(nc):
-        h_in.append(h)
-        h = torch.exp(cs_end[:, c].float())[..., None, None] * h + dS[:, c]
-    h_in = carry(torch.stack(h_in, 1))                       # (B,nc,H,P,N)
-    # pass 3: y = (C B^T o L o dt) x + exp(cs) o (C h_in^T)
+    return dict(xf=xf, dtc=dtc, Bc=Bc, Cc=Cc, cs=cs, cs_end=cs_end, dS=dS)
+
+
+def _ssd_y(terms, h_in, x, *, carry=_pair):
+    """y = (C B^T o L o dt) x + exp(cs) o (C h_in^T), h_in (B, nc, H, P,
+    N) as the chunks receive it (``carry`` already applied)."""
+    xf, dtc, Bc, Cc, cs = (terms[k] for k in ("xf", "dtc", "Bc", "Cc", "cs"))
+    Bb, nc, Q, H, P = xf.shape
     scores = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
     csh = cs.permute(0, 1, 3, 2)                              # (B,nc,H,Q)
     L = torch.exp((csh[..., :, None] - csh[..., None, :]).float())
@@ -215,7 +286,55 @@ def _ssd_three_pass(x, dt, a_log, B_in, C_in, *, chunk, carry=_pair):
     y = torch.einsum("bchij,bcjhp->bcihp", carry(M), xf)
     y = y + torch.einsum("bcihn,bchpn->bcihp", Cc, h_in) \
         * torch.exp(cs.float())[..., None]
-    return y.reshape(Bb, S, H, P).to(x.dtype), h
+    return y.reshape(Bb, nc * Q, H, P).to(x.dtype)
+
+
+def _ssd_three_pass(x, dt, a_log, B_in, C_in, *, chunk, carry=_pair):
+    """y (x's dtype) and the final state (fp32) by ``ssd_scan.cu``'s
+    tensor-core passes, in PyTorch; ``carry`` rounds the three operands
+    the kernels compute."""
+    Bb, S, H, P = x.shape
+    N = B_in.shape[3]
+    t = _ssd_chunk_terms(x, dt, a_log, B_in, C_in, chunk=chunk, carry=carry)
+    # pass 2: h_c = exp(cs_end,c) h_{c-1} + dS_c; h_in is the entering state
+    h = torch.zeros(Bb, H, P, N)
+    h_in = []
+    for c in range(S // chunk):
+        h_in.append(h)
+        h = torch.exp(t["cs_end"][:, c].float())[..., None, None] * h \
+            + t["dS"][:, c]
+    h_in = carry(torch.stack(h_in, 1))                       # (B,nc,H,P,N)
+    # pass 3: y = (C B^T o L o dt) x + exp(cs) o (C h_in^T)
+    return _ssd_y(t, h_in, x, carry=carry), h
+
+
+def _ssd_cluster_model(x, dt, a_log, B_in, C_in, *, chunk, plan,
+                       carry=_pair):
+    """y and the final state by ``ssd_cluster_kernel``'s schedule
+    (``plan``: :func:`ssd_mod.cluster_plan`): per tile of the state, each
+    rank walks its rows of the tile round by round over the round's chunks from the carry the
+    previous round left it, writing the state entering each chunk (chunk
+    0 enters with zeros), and the last round writes its rows of the final
+    state; every chunk's own terms and y as in the three passes."""
+    Bb, S, H, P = x.shape
+    N, nc, C = B_in.shape[3], S // chunk, plan["cluster"]
+    t = _ssd_chunk_terms(x, dt, a_log, B_in, C_in, chunk=chunk, carry=carry)
+    h_in = torch.zeros(Bb, nc, H, P, N)
+    final = torch.empty(Bb, H, P, N)
+    col_tiles = sorted({ct for _, ct in plan["tiles"]})
+    for lo, hi in (rows for rank in plan["rows"] for rows in rank):
+        for a, z in col_tiles:
+            hv = None
+            for k in range(plan["rounds"]):
+                for c in range(k * C, min(nc, (k + 1) * C)):
+                    if c == 0:
+                        hv = t["dS"][:, 0, :, lo:hi, a:z]
+                        continue
+                    h_in[:, c, :, lo:hi, a:z] = hv
+                    hv = torch.exp(t["cs_end"][:, c].float())[
+                        ..., None, None] * hv + t["dS"][:, c, :, lo:hi, a:z]
+            final[:, :, lo:hi, a:z] = hv
+    return _ssd_y(t, carry(h_in), x, carry=carry), final
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
@@ -257,6 +376,205 @@ def test_one_bf16_rounding_would_miss_the_tolerance():
         return float(((y.float() - want_y.float()).abs() / limit).max())
 
     assert worst(_pair) <= 1.0 < worst(_single)
+
+
+# --------------------------------------------------------------------- #
+# the SSD cluster kernel's schedule and its exchange
+# --------------------------------------------------------------------- #
+# an H100 SM's shared memory, and what each resident block reserves of it
+SM_SMEM_BYTES, BLOCK_RESERVED_BYTES = 233_472, 1024
+MAMBA2_130M = dict(H=24, P=64, N=128, chunk=64, S=512)
+
+# the shapes the tensor cores take on the card (tests/test_torch_card.py's
+# grid and chip_smoke.py's), and chunk counts of 5, 12 and 32
+SSD_CLUSTER_SHAPES = [
+    # B, S, H, P, N, chunk
+    (1, 512, 24, 64, 128, 64), (2, 512, 24, 64, 128, 64),
+    (4, 512, 24, 64, 128, 64),
+    (2, 64, 4, 64, 128, 64),        # one chunk
+    (8, 1024, 48, 64, 128, 64),     # 16 chunks
+    (2, 2048, 24, 64, 128, 128),    # a chunk of 128
+    (2, 256, 4, 80, 64, 64),        # P = 80
+    (1, 512, 8, 64, 256, 64),       # N = 256
+    (1, 256, 4, 64, 256, 128),      # N = 256 at a chunk of 128
+    (1, 256, 4, 64, 272, 64),       # N past 256
+    (3, 192, 6, 32, 48, 48),        # chunk 48
+    (1, 320, 24, 64, 128, 64),      # 5 chunks
+    (2, 768, 24, 64, 128, 64),      # 12 chunks
+    (1, 2048, 24, 64, 128, 64),     # 32 chunks
+    (2, 64, 4, 128, 16, 16),        # P = 128: two row tiles
+    (2, 256, 4, 96, 16, 64),        # P = 96: two row tiles of 48
+    (1, 64, 2, 64, 512, 16),        # N = 512: two column tiles
+    (1, 512, 4, 256, 256, 64),      # 4 x 2 tiles
+]
+
+
+def _held(table):
+    """A stand-in occupancy query: clusters held at once by size."""
+    return lambda c, carry: table[c]
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CLUSTER_SHAPES)
+def test_ssd_cluster_schedule_covers_each_entering_state_once(
+        B, S, H, P, N, chunk, cluster):
+    """``ssd_cluster_kernel``'s schedule, as its loops walk it: rank r
+    holds chunk k C + r in round k; per tile of the state (row tiles
+    outer), each owned chunk pushes row p of the tile's increment to rank
+    p / RP, slot r, row p % RP (RP: the tile's rows over C), and each rank
+    reads back exactly the increments of its rows for the round's chunks;
+    each rank then writes, thread by thread (4 columns each), the state
+    entering every chunk of the round at its rows of the tile.  So every
+    (chunk, row, column) entering state is produced exactly once, chunk 0
+    never (it enters with zeros), and every element of the final state
+    once."""
+    nc = S // chunk
+    plan = ssd_mod.cluster_plan(B, S, H, P, N, chunk, cluster=cluster)
+    C, rounds = plan["cluster"], plan["rounds"]
+    assert C in ssd_mod.CLUSTERS and P % C == 0
+    assert C == (cluster or min(ssd_mod.CLUSTER, 1 << (nc - 1).bit_length()))
+    assert rounds == -(-nc // C) and plan["carry"] == (rounds > 1)
+    assert sorted(c for cs in plan["chunks"] for c in cs) == list(range(nc))
+    rows, cols = ssd_mod.cluster_tiles(P, N, chunk)
+    row_tiles = sorted({rt for rt, _ in plan["tiles"]})
+    assert [ct for rt, ct in plan["tiles"] if rt == row_tiles[0]] == \
+        [(lo, min(N, lo + cols)) for lo in range(0, N, cols)]
+    assert row_tiles == [(lo, min(P, lo + rows)) for lo in range(0, P, rows)]
+    entering = np.zeros((nc, P, N), np.int64)
+    final = np.zeros((P, N), np.int64)
+    for k in range(rounds):
+        nv = min(C, nc - k * C)
+        for r in range(C):                     # chunk of rank r this round
+            owned = [c for c in plan["chunks"][r] if c // C == k]
+            assert owned == ([k * C + r] if r < nv else [])
+        for (plo, phi), (nlo, nhi) in plan["tiles"]:
+            RP, per_row = (phi - plo) // C, (nhi - nlo) // 4
+            in_ds = np.zeros((C, C, RP), np.int64)     # owner, slot, row
+            for j in range(nv):
+                for p in range(phi - plo):
+                    in_ds[p // RP, j, p % RP] += 1
+            for r in range(C):
+                lo, hi = plan["rows"][r][row_tiles.index((plo, phi))]
+                assert (lo, hi) == (plo + r * RP, plo + (r + 1) * RP)
+                assert (in_ds[r, :nv] == 1).all() and \
+                    (in_ds[r, nv:] == 0).all()
+                for i in range(RP * per_row):         # the rank's threads
+                    p, n = lo + i // per_row, nlo + 4 * (i % per_row)
+                    for c in range(k * C + (k == 0), k * C + nv):
+                        entering[c, p, n:n + 4] += 1
+                    if k == rounds - 1:
+                        final[p, n:n + 4] += 1
+    assert (entering[0] == 0).all() and (entering[1:] == 1).all()
+    assert (final == 1).all()
+
+
+# clusters of 1 / 2 / 4 / 8 an H100 holds at once at mamba2-130m's widths
+# (1 with its 32 KB carry: one block a SM); chip_smoke.py prints them
+HELD_130M = {1: 132, 2: 132, 4: 62, 8: 30}
+
+
+@pytest.mark.parametrize("B,S,H,want", [
+    (1, 512, 24, 8),      # 24 clusters: one wave of one round
+    (2, 512, 24, 4),      # 48: two waves of 8 or two rounds of 4
+    (4, 512, 24, 2),      # 96: 4 waves x 1, 2 x 2 or 1 x 4
+    (8, 1024, 48, 2),     # 384 over 16 chunks: 3 waves x 8 rounds
+])
+def test_ssd_cluster_size_takes_the_fewest_waves_times_rounds(B, S, H,
+                                                              want):
+    """At mamba2-130m's widths the size is the one with the fewest waves
+    (clusters over those held at once) times rounds, the smaller on a
+    tie; the rounds and the carry follow."""
+    m = MAMBA2_130M
+    plan = ssd_mod.cluster_plan(B, S, H, m["P"], m["N"], m["chunk"],
+                                _held(HELD_130M))
+    nc = S // m["chunk"]
+    assert plan["cluster"] == want
+    assert plan["rounds"] == nc // want and plan["carry"] == (want < nc)
+    # without the occupancy query: the fewest rounds
+    assert ssd_mod.cluster_plan(B, S, H, m["P"], m["N"],
+                                m["chunk"])["cluster"] == min(8, nc)
+
+
+def test_ssd_cluster_size_skips_sizes_whose_carry_does_not_fit():
+    """N = 256 at a chunk of 128, 16 chunks: a cluster of 8 with its carry
+    fits an SM, one of 4, 2 or 1 would not, so 8 it is however few the
+    card holds; a single chunk takes a cluster of 1 and no carry; a card
+    that holds no cluster of any size that fits is refused."""
+    plan = ssd_mod.cluster_plan(4, 2048, 24, 64, 256, 128,
+                                _held({8: 1, 4: 60, 2: 120, 1: 240}))
+    assert (plan["cluster"], plan["rounds"], plan["carry"]) == (8, 2, True)
+    assert plan["smem_bytes"] <= build.MAX_SMEM_BYTES
+    for c in (1, 2, 4):
+        assert ssd_mod.cluster_smem_bytes(64, 256, 128, c, True) > \
+            build.MAX_SMEM_BYTES
+    one = ssd_mod.cluster_plan(1, 128, 4, 64, 256, 128, _held({1: 1}))
+    assert (one["cluster"], one["rounds"], one["carry"]) == (1, 1, False)
+    with pytest.raises(ValueError, match="no cluster size fits"):
+        ssd_mod.cluster_plan(1, 2048, 4, 64, 256, 128, _held({8: 0}))
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssd_cluster_block_leaves_two_blocks_an_sm_at_mamba2_130m(cluster,
+                                                                  carry):
+    """At mamba2-130m's serving widths every cluster size the rule can
+    pick for B·24 clusters (2 to 8) leaves room for two blocks an SM,
+    with or without the carry of several rounds."""
+    m = MAMBA2_130M
+    smem = ssd_mod.cluster_smem_bytes(m["P"], m["N"], m["chunk"], cluster,
+                                      carry)
+    assert 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 64, 2, 16, 1, 16, 16),
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 64, 4, 16, 2, 16, 16),      # grouped B/C
+    (2, 64, 4, 16, 1, 32, 64),      # one chunk
+    (1, 80, 2, 16, 1, 16, 16),      # 5 chunks
+    (1, 192, 2, 16, 1, 16, 16),     # 12 chunks
+    (1, 512, 2, 16, 1, 16, 16),     # 32 chunks
+    (1, 256, 2, 80, 1, 32, 128),    # a chunk of 128, P = 80
+    (1, 64, 2, 128, 1, 16, 16),     # P = 128: two row tiles
+    (1, 64, 2, 16, 1, 512, 16),     # N = 512 at P = 16: one tile
+    (1, 128, 2, 64, 1, 512, 32),    # two column tiles
+])
+def test_ssd_cluster_exchange_equals_the_three_passes(B, S, H, P, G, N,
+                                                      chunk, cluster):
+    """The sliced, round-by-round exchange gives the three passes' y and
+    final state bit for bit (the same fp32 chain per element)."""
+    tin = _as("bfloat16", *_ssd_inputs(B * 7 + S + P, B, S, H, P, G, N),
+              lib="torch")
+    plan = ssd_mod.cluster_plan(B, S, H, P, N, chunk, cluster=cluster)
+    y, h = _ssd_cluster_model(*tin, chunk=chunk, plan=plan)
+    want_y, want_h = _ssd_three_pass(*tin, chunk=chunk)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+
+
+@pytest.mark.parametrize("B,cluster", [(1, 0), (2, 4), (4, 2)])
+def test_ssd_cluster_exchange_meets_the_references_at_mamba2_130m(B,
+                                                                  cluster):
+    """At mamba2-130m's widths (S = 256 here: 4 chunks, so clusters of 4
+    and 2 take 1 and 2 rounds), the exchange's y and final state against
+    ``ref.ssd_scan_ref`` and the JAX package's ``ssd_scan`` (the Pallas
+    kernel in interpret mode) at bf16's tolerance."""
+    m = MAMBA2_130M
+    S, chunk = 256, m["chunk"]
+    arrays = _ssd_inputs(B * 7 + S + m["P"], B, S, m["H"], m["P"], 1,
+                         m["N"])
+    tin = _as("bfloat16", *arrays, lib="torch")
+    plan = ssd_mod.cluster_plan(B, S, m["H"], m["P"], m["N"], chunk,
+                                cluster=cluster)
+    assert plan["rounds"] == (2 if cluster == 2 else 1)
+    y, h = _ssd_cluster_model(*tin, chunk=chunk, plan=plan)
+    want_y, want_h = ref.ssd_scan_ref(*tin)
+    np.testing.assert_allclose(y.float().numpy(), want_y.float().numpy(),
+                               **BF16_TOL)
+    np.testing.assert_allclose(h.numpy(), want_h.numpy(), **BF16_TOL)
+    jy = jops.ssd_scan(*_as("bfloat16", *arrays, lib="jax"), chunk=chunk)
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jy, np.float32), **BF16_TOL)
 
 
 # --------------------------------------------------------------------- #
@@ -491,3 +809,24 @@ def test_flash_tc_model_matches_references(B, S, H, Hkv, D, window,
                                   block_q=32, block_kv=32)
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(jo, np.float32), **BF16_TOL)
+
+
+def test_ssd_forced_cluster_needs_the_cluster_kernel():
+    """A forced cluster size is refused before any launch where the cluster
+    kernel does not run: fp32 forced onto the tensor cores, the CUDA
+    cores, and sizes it does not launch (3, and 16)."""
+    x = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    dt = torch.zeros((1, 64, 2))
+    a_log = torch.zeros(2)
+    Bc = torch.zeros((1, 64, 1, 128), dtype=torch.bfloat16)
+    cases = [((x.float(), dt, a_log, Bc.float(), Bc.float()),
+              dict(chunk=64, force="tensor_core", cluster=8)),
+             ((x, dt, a_log, Bc, Bc), dict(chunk=64, force="cuda_core",
+                                           cluster=8)),
+             ((x, dt, a_log, Bc, Bc), dict(chunk=64, cluster=3)),
+             ((x, dt, a_log, Bc, Bc), dict(chunk=64, cluster=16))]
+    before = dict(KERNEL_STATS["ssd_scan"].launches_by_route)
+    for args, kw in cases:
+        with pytest.raises(ValueError, match="cluster"):
+            ssd_mod.launch(*args, **kw)
+    assert KERNEL_STATS["ssd_scan"].launches_by_route == before

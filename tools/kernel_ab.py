@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time two checkouts' decode and flash kernels at the same shapes, in
-turns, on one card.
+"""Time two checkouts' decode, flash and SSD kernels at the same shapes,
+in turns, on one card.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/kernel_ab.py --parent DIR [--calls LOG] [--out FILE]
+    python3 tools/kernel_ab.py --parent DIR [--calls LOG] [--out FILE] \
+        [--kernels decode,flash,ssd]
 
 ``DIR`` is the root of another checkout (for instance the parent commit,
 unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -20,13 +21,19 @@ Every worker times, on the same seeded inputs:
   valid rows as there, at most S), so the call-weighted total can be
   compared;
 * ``flash_attention`` forced onto its CUDA-core route (fp32) at
-  :data:`FLASH_SHAPES`: row 1a's shape and the fp32 model checks'.
+  :data:`FLASH_SHAPES`: row 1a's shape and the fp32 model checks';
+* ``ssd_scan`` forced onto its tensor-core route (bf16) at
+  :data:`SSD_SHAPES` (mamba2-130m's serving calls at B = 1, 2, 4 and
+  ``chip_smoke.py``'s wide bf16 shapes) and, with ``--calls``, at every
+  shape of the SSD row's ``calls_by_shape``, so the call-weighted total
+  can be compared.
 
-Each time is ``chip_smoke.time_ms`` (device ms by CUDA events, host ms
-beside) and the profiler's kernel records per call.  A worker of a
-checkout whose decode runs as one cluster launch also times it at every
-cluster size it is built for and asks the library how many clusters of
-each size the card holds at once.
+``--kernels`` picks which of the three each worker times (all by
+default).  Each time is ``chip_smoke.time_ms`` (device ms by CUDA
+events, host ms beside) and the profiler's kernel records per call.  A
+worker of a checkout whose decode or SSD runs as one cluster launch also
+times it at every cluster size it is built for and asks the library how
+many clusters of each size the card holds at once.
 The result, one JSON object with every worker's times, the means per
 checkout and the ratio of the means, goes to standard output (and to
 ``--out``).  Needs no network; imports no JAX.
@@ -57,19 +64,87 @@ DECODE_SHAPES = ((4, 1024, 4, 1, 256), (1, 1024, 4, 1, 256),
 FLASH_SHAPES = ((4, 512, 4, 1, 256, 0), (1, 1024, 4, 1, 256, 0),
                 (1, 1024, 4, 1, 256, 512), (1, 1000, 16, 16, 64, 0),
                 (1, 1000, 14, 2, 64, 0), (1, 2100, 16, 1, 256, 2048))
+# (B, S, H, P, G, N, chunk): mamba2-130m's prefill at B = 1, 2, 4 (row 3a
+# at B = 4), then chip_smoke.py's wide bf16 shapes
+SSD_SHAPES = ((1, 512, 24, 64, 1, 128, 64), (2, 512, 24, 64, 1, 128, 64),
+              (4, 512, 24, 64, 1, 128, 64), (8, 1024, 48, 64, 1, 128, 64),
+              (2, 2048, 24, 64, 2, 64, 128), (2, 256, 4, 80, 1, 64, 64),
+              (1, 256, 4, 64, 1, 256, 128), (1, 256, 4, 64, 1, 272, 64),
+              (2, 256, 4, 128, 1, 64, 64), (1, 256, 4, 64, 1, 512, 32))
+KERNELS = ("decode", "flash", "ssd")
 
 
-def _serving_calls(log: Path) -> list:
-    """The decode row's ``calls_by_shape`` from a chip_smoke log."""
+def _serving_calls(log: Path) -> dict:
+    """The decode and SSD rows' ``calls_by_shape`` from a chip_smoke
+    log."""
     for line in log.read_text().splitlines():
         if line.startswith('{"kernels"'):
-            rows = json.loads(line)["kernels"]
-            return next(r["calls_by_shape"] for r in rows
-                        if r["name"] == "decode_attention")
+            rows = {r["name"]: r for r in json.loads(line)["kernels"]}
+            return {k: rows[name].get("calls_by_shape", [])
+                    for k, name in (("decode", "decode_attention"),
+                                    ("ssd", "ssd_scan"))}
     raise SystemExit(f"kernel_ab: no kernels line in {log}")
 
 
-def worker(src: str, calls: list) -> dict:
+def _time_ssd(torch, cs, inputs, calls: list) -> list:
+    """The SSD forced onto the tensor cores at :data:`SSD_SHAPES` and the
+    serving calls' bf16 shapes."""
+    from repro_torch.kernels import KERNEL_STATS, build, ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    sizes = getattr(ssd_mod, "CLUSTERS", ())
+    dev = torch.device("cuda")
+    shapes = [(*shape, None) for shape in SSD_SHAPES]
+    shapes += [(*(c["shape"][x] for x in ("B", "S", "H", "P", "G", "N",
+                                          "chunk")), c["calls"])
+               for c in calls if c["dtype"] == "bfloat16"]
+    rows = []
+    for B, S, H, P, G, N, Q, n_calls in shapes:
+        x, B_in, C_in = inputs(B + S + H + P + N,
+                               ((B, S, H, P), (B, S, G, N), (B, S, G, N)),
+                               torch.bfloat16)
+        dt = torch.nn.functional.softplus(
+            inputs(S + H, ((B, S, H),), torch.float32)[0])
+        a_log = torch.log(torch.linspace(1.0, 4.0, H, device=dev))
+        args = (x, dt, a_log, B_in, C_in)
+        want_y, want_h = ref.ssd_scan_ref(*args)
+
+        def call(**kw):
+            return ssd_mod.launch(*args, chunk=Q, force="tensor_core", **kw)
+        y, h = call()
+        err = max(float((y.float() - want_y.float()).abs().max()),
+                  float((h - want_h).abs().max()))
+        t = cs.time_ms(torch, call, iters=50)
+        rec = cs._kernel_records(torch, call, KERNEL_STATS["ssd_scan"])
+        row = {"shape": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                         "chunk": Q}, "calls": n_calls,
+               "ms": t["ms"], "host_ms": t["host_ms"],
+               "covered": t["covered"], "max_abs_err": err,
+               "profiler_ms": sum(rec["kernels_ms"].values()),
+               "kernels_ms": rec["kernels_ms"],
+               "records_per_call": rec["records_per_call"],
+               "launches_per_call": rec["launches_per_call"]}
+        if sizes:
+            # the size the shape takes, what the card holds of each size,
+            # and every size the kernel launches (None: refused there)
+            lib = build.library("ssd_scan")
+            row["cluster"] = lib.ssd_scan_tc_cluster(B, S, H, P, N, Q)
+            row["max_active_clusters"] = {
+                c: lib.ssd_scan_max_active_clusters(P, N, Q, c,
+                                                    int(S // Q > c))
+                for c in sizes}
+            row["ms_by_cluster"] = {}
+            for c in sizes:
+                try:
+                    row["ms_by_cluster"][c] = cs.time_ms(
+                        torch, lambda c=c: call(cluster=c), iters=50)["ms"]
+                except RuntimeError:
+                    row["ms_by_cluster"][c] = None
+        rows.append(row)
+        del args, x, B_in, C_in, dt, want_y, want_h
+    return rows
+
+
+def worker(src: str, calls: dict, kernels=KERNELS) -> dict:
     import torch
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, src)
@@ -90,7 +165,10 @@ def worker(src: str, calls: list) -> dict:
     decode = []
     shapes = [(B, S, H, Hkv, D, None) for B, S, H, Hkv, D in DECODE_SHAPES]
     shapes += [(*(c["shape"][x] for x in ("B", "S", "H", "Hkv", "D")),
-                c["calls"]) for c in calls if c["dtype"] == "bfloat16"]
+                c["calls"]) for c in calls.get("decode", [])
+               if c["dtype"] == "bfloat16"]
+    if "decode" not in kernels:
+        shapes = []
     for B, S, H, Hkv, D, n_calls in shapes:
         q, kc, vc = inputs(B + S + H + D, ((B, 1, H, D), (B, S, Hkv, D),
                                            (B, S, Hkv, D)), torch.bfloat16)
@@ -122,7 +200,8 @@ def worker(src: str, calls: list) -> dict:
                 for c in sizes if c <= D // 2}
         decode.append(row)
     flash = []
-    for B, S, H, Hkv, D, window in FLASH_SHAPES:
+    for B, S, H, Hkv, D, window in (FLASH_SHAPES if "flash" in kernels
+                                    else ()):
         q, k, v = inputs(B + S + H + D + window,
                          ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)),
                          torch.float32)
@@ -140,16 +219,18 @@ def worker(src: str, calls: list) -> dict:
                       "covered": t["covered"], "max_abs_err": err,
                       "profiler_ms": sum(rec["kernels_ms"].values())})
         del q, k, v, want
+    ssd = (_time_ssd(torch, cs, inputs, calls.get("ssd", []))
+           if "ssd" in kernels else [])
     occupancy = {}
     lib = build.library("decode_attention")
-    if sizes:
+    if sizes and "decode" in kernels:
         for D in (64, 256):
             for S in (512, 1024, 4096):
                 for c in sizes:
                     occupancy[f"D{D}/S{S}/cluster{c}"] = \
                         lib.decode_attention_max_active_clusters(D, S, c)
     return {"src": src, "build_s": build_s, "decode": decode,
-            "flash": flash, "max_active_clusters": occupancy,
+            "flash": flash, "ssd": ssd, "max_active_clusters": occupancy,
             "ptxas": {n: [ln.strip() for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln
                           or "Function properties for" in ln]
@@ -162,16 +243,20 @@ def _mean(xs):
 
 def summarize(runs: dict) -> dict:
     """Means per checkout of each shape's ms, host ms and profiler ms, the
-    ratio this / other, and the call-weighted decode totals."""
-    out = {"decode": [], "flash": []}
-    for kind in ("decode", "flash"):
+    ratio this / other, and the call-weighted decode and SSD totals."""
+    out = {"decode": [], "flash": [], "ssd": []}
+    for kind in ("decode", "flash", "ssd"):
         for i, row in enumerate(runs["this"][0][kind]):
             entry = {"shape": row["shape"]}
-            if kind == "decode":
+            if kind != "flash":
                 entry["calls"] = row["calls"]
                 entry["cluster"] = row.get("cluster")
+                entry["max_active_clusters"] = row.get("max_active_clusters")
                 entry["this_ms_by_cluster"] = [r[kind][i].get("ms_by_cluster")
                                                for r in runs["this"]]
+                entry["records_per_call"] = {
+                    tree: [r[kind][i]["records_per_call"] for r in runs[tree]]
+                    for tree in ("other", "this")}
             for tree in ("other", "this"):
                 rs = [r[kind][i] for r in runs[tree]]
                 entry[tree] = {m: [r[m] for r in rs]
@@ -180,12 +265,13 @@ def summarize(runs: dict) -> dict:
             entry["this_over_other"] = (entry["this"]["mean_ms"]
                                         / entry["other"]["mean_ms"])
             out[kind].append(entry)
-    weighted = [e for e in out["decode"] if e["calls"]]
-    if weighted:
-        out["decode_weighted_ms"] = {
-            tree: sum(e["calls"] * e[tree]["mean_ms"] for e in weighted)
-            for tree in ("other", "this")}
-        out["decode_weighted_calls"] = sum(e["calls"] for e in weighted)
+    for kind in ("decode", "ssd"):
+        weighted = [e for e in out[kind] if e["calls"]]
+        if weighted:
+            out[f"{kind}_weighted_ms"] = {
+                tree: sum(e["calls"] * e[tree]["mean_ms"] for e in weighted)
+                for tree in ("other", "this")}
+            out[f"{kind}_weighted_calls"] = sum(e["calls"] for e in weighted)
     return out
 
 
@@ -196,11 +282,17 @@ def main(argv=None) -> int:
                     help="a chip_smoke.py log: time decode at its serving "
                          "calls' shapes too")
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="which kernels to time, of " + ",".join(KERNELS))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--calls-json", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    kernels = tuple(args.kernels.split(","))
+    if set(kernels) - set(KERNELS):
+        ap.error(f"--kernels: pick from {','.join(KERNELS)}")
     if args.worker:
-        print(json.dumps(worker(args.worker, json.loads(args.calls_json))))
+        print(json.dumps(worker(args.worker, json.loads(args.calls_json),
+                                kernels)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -208,14 +300,14 @@ def main(argv=None) -> int:
         return 2
     if not args.parent:
         ap.error("--parent is required")
-    calls = _serving_calls(args.calls) if args.calls else []
+    calls = _serving_calls(args.calls) if args.calls else {}
     trees = {"other": str(Path(args.parent).resolve() / "src"),
              "this": str(ROOT / "src")}
     runs = {"other": [], "this": []}
     for tree in ("other", "this", "this", "other"):
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", trees[tree],
-             "--calls-json", json.dumps(calls)],
+             "--calls-json", json.dumps(calls), "--kernels", args.kernels],
             capture_output=True, text=True, timeout=1200,
             env={**os.environ, "PYTHONPATH": ""})
         if proc.returncode != 0:
