@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device, ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``) and no
-network.  Six LM serving paths, each a registered configuration at
+network.  Nine LM serving paths, each a registered configuration at
 full width with seeded random weights, the micro models of the real
 plane, full-width gemma3-1b training, and the kernels each one runs:
 
@@ -26,6 +26,13 @@ plane, full-width gemma3-1b training, and the kernels each one runs:
   24 attention layers through ``flash_attention`` and
   ``decode_attention`` at head dim 64 and a GQA group of 7 (14 heads on
   2);
+* stablelm-12b, llama3-8b and minitron-8b — dense decoders of 32 query
+  heads on 8 KV heads, whole (40, 32 and 32 layers; ~12.1B, ~8.0B and
+  ~7.7B parameters), through ``flash_attention`` and
+  ``decode_attention`` on the tensor cores: stablelm-12b at head dim
+  160 (LayerNorm, 25% partial rotary, per-head qk-norm), the other two
+  at 128 (llama3-8b: RMSNorm, SwiGLU; minitron-8b: LayerNorm, 50%
+  partial rotary, a squared-ReLU MLP);
 * attn-tiny — ``flash_attention`` on its short route (fp32, head dim
   16, S = 16, 8 and 4, unpadded on the card); mlp-tiny and mlp run no
   kernel of the port;
@@ -34,8 +41,9 @@ plane, full-width gemma3-1b training, and the kernels each one runs:
   ``flash_attention`` on its short route (prefill at bucket 16) and
   ``decode_attention`` on the CUDA cores (64-slot caches).
 
-Phases, each printing JSON lines; any failure raises and the script exits
-non-zero:
+Phases, each printing JSON lines (each ``model``, ``trace`` and
+``serve`` line with its ``seconds``); any failure raises and the script
+exits non-zero:
 
 1. **build** — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, in parallel) into ``build/kernels``.
@@ -47,12 +55,17 @@ non-zero:
    there the unpadded call must equal the call padded to 16 bit for
    bit), and the serving shapes of the LM paths at B = 1
    and 4 (head dim 64 at 16 heads on 16 and 14 on 2 for seamless-m4t-
-   medium and internvl2-1b; decode also at B = 8 and at the serve
-   phase's cache lengths; decode lengths of 0, 1, one split, one split
-   + 1 and S, where a row of length 0 must be 0 as from the TPU kernel;
-   lm-tiny's decode at B = 1, 2, 4, 8 over 64 slots at head dim 16 and
-   8; GQA groups 17 and 32; the tensor-core decode's cluster kernel at
-   lengths 0, 1, 5, 100 and S at every head dim and over 4096 slots,
+   medium and internvl2-1b; 32 heads on 8 at head dim 160 for
+   stablelm-12b, causal and windowed, and 128 for llama3-8b and
+   minitron-8b; decode at head dim 160 with each cluster size forced,
+   over 1024 and 4096 slots, and over stablelm-12b's model check's 2048;
+   flash in fp32 at its 1024-position prompt; decode also at B = 8 and
+   at the serve phase's cache lengths; decode lengths of 0, 1, one
+   split, one split + 1 and S, where a row of length 0 must be 0 as
+   from the TPU kernel; lm-tiny's decode at B = 1, 2, 4, 8 over 64
+   slots at head dim 16 and 8; GQA groups 17 and 32; the tensor-core
+   decode's cluster kernel at lengths 0, 1, 5, 100 and S at every head
+   dim and over 4096 slots,
    where its ranks loop over tiles; flash in fp32 at the model checks'
    prompts (1000 positions at head dim 64, 2100 at recurrentgemma-9b's
    window); an SSD chunk of 40, which the CUDA-core scan pads to 16-row
@@ -100,7 +113,10 @@ non-zero:
    prompt over 2048 encoder frames (the encoder on blocked attention's
    tiled path; 1000 is no multiple of the flash wrapper's 512-row block,
    so its padding runs) and internvl2-1b 256 patches + 744 tokens, both
-   into 2048 slots.  Each prompt batch carries the inputs
+   into 2048 slots; stablelm-12b, llama3-8b and minitron-8b 1024 tokens
+   into 2048 slots (fp32 ~48.6, ~32 and ~31 GB, one dtype on the card at
+   a time; ``param_count`` on each line).  Each prompt batch carries the
+   inputs
    ``input_specs`` names, seeded.  fp32 logits must agree to 1e-3 of
    their largest magnitude (summation order only); in bf16 the kernel path
    must stay within twice the plain bf16 path's distance from the fp32
@@ -281,7 +297,13 @@ PATHS = {"gemma3-1b": {"flash_attention": "tensor_core",
          "seamless-m4t-medium": {"flash_attention": "tensor_core",
                                  "decode_attention": "tensor_core"},
          "internvl2-1b": {"flash_attention": "tensor_core",
-                          "decode_attention": "tensor_core"}}
+                          "decode_attention": "tensor_core"},
+         "stablelm-12b": {"flash_attention": "tensor_core",
+                          "decode_attention": "tensor_core"},
+         "llama3-8b": {"flash_attention": "tensor_core",
+                       "decode_attention": "tensor_core"},
+         "minitron-8b": {"flash_attention": "tensor_core",
+                         "decode_attention": "tensor_core"}}
 # path -> overrides that cut a configuration to one card: deepseek-v2-236b
 # keeps its full width and its dense MLA prefix layer, and 2 of its 59
 # MLA_MOE repeats (each ~3.97B parameters, 7.9 GB in bf16): 59 repeats
@@ -309,19 +331,27 @@ ROUTES = ("cuda_core", "tensor_core", "short", "chunked")
 # the host calls that put a kernel on the device, as the profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
+# profiler sessions taken again, a second apart, where one holds no kernel
+# record at all (_profile)
+PROFILE_EMPTY_TRIES = 4
 # path -> (prompt positions, cache slots) of the model check; a vision
 # prompt's positions include its patches
 MODEL_CHECK = {"gemma3-1b": (1024, 2048), "mamba2-130m": (1000, 2048),
                "recurrentgemma-9b": (2100, 4096),
                "deepseek-v2-236b": (512, 1024),
                "seamless-m4t-medium": (1000, 2048),
-               "internvl2-1b": (1000, 2048)}
+               "internvl2-1b": (1000, 2048),
+               "stablelm-12b": (1024, 2048), "llama3-8b": (1024, 2048),
+               "minitron-8b": (1024, 2048)}
 # path -> encoder frames of the model check, where input_specs' count
 # (min(prompt, n_frames)) is not the one wanted
 MODEL_FRAMES = {"seamless-m4t-medium": 2048}
 # the head-dim-64 serving shapes (H, Hkv): seamless-m4t-medium's decoder
 # and internvl2-1b's group of 7
 D64_SERVING = ((16, 16), (14, 2))
+# the dense paths' attention (H, Hkv): 32 heads on 8 at head dim 160
+# (stablelm-12b) and 128 (llama3-8b, minitron-8b)
+DENSE_HEADS = (32, 8)
 # micro models of the real plane: model -> {kernel: the route its serving
 # run must launch}; any other launch fails the path.  attn-tiny runs the
 # fp32 flash kernel's short route (2 heads of head dim 16), the MLPs no
@@ -369,9 +399,10 @@ TRAIN_REDUCED = {"n_repeats": 1, "vocab_size": 1024}
 # tensor cores at gemma3-1b's prefill, its short route at attn-tiny's,
 # its CUDA-core kernel (flash_fwd_kernel) in fp32 at the tensor cores'
 # shape (the fp32 model checks run it), the CUDA-core decode and SSD
-# kernels in fp32 at their bf16 rows' shapes, and the CUDA-core decode
-# again at lm-tiny's largest decode cell; each row's launches are those
-# of its route
+# kernels in fp32 at their bf16 rows' shapes, the CUDA-core decode
+# again at lm-tiny's largest decode cell, and both tensor-core attention
+# kernels again at stablelm-12b's head dim 160 (32 heads on 8); each
+# row's launches are those of its route
 _CSRC = "src/repro_torch/kernels/csrc/"
 KERNEL_ROWS = (
     ("flash_attention", "flash_attention", "tensor_core",
@@ -380,6 +411,9 @@ KERNEL_ROWS = (
      _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
     ("flash_attention/cuda_core", "flash_attention/fp32", "cuda_core",
      _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
+    ("flash_attention/stablelm-12b", "flash_attention/stablelm-12b",
+     "tensor_core", _CSRC + "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:89"),
     ("decode_attention", "decode_attention", "tensor_core",
      _CSRC + "decode_attention.cu",
      "src/repro/kernels/decode_attention.py:125"),
@@ -388,6 +422,9 @@ KERNEL_ROWS = (
      "src/repro/kernels/decode_attention.py:125"),
     ("decode_attention/cuda_core/lm-tiny", "decode_attention/lm-tiny",
      "cuda_core", _CSRC + "decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:125"),
+    ("decode_attention/stablelm-12b", "decode_attention/stablelm-12b",
+     "tensor_core", _CSRC + "decode_attention.cu",
      "src/repro/kernels/decode_attention.py:125"),
     ("ssd_scan", "ssd_scan", "tensor_core", _CSRC + "ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:72"),
@@ -620,20 +657,34 @@ def _profile(torch, fn, tries: int = 3):
     sessions (the kernels phase), a session without the warm-up lost its
     first two kernel records to the tracer's start-up, on any stream, and
     with it now and then more, so attn-tiny's one-kernel step read as no
-    device time at all."""
+    device time at all.  A session that holds no kernel record at all is
+    taken again a second later (at most :data:`PROFILE_EMPTY_TRIES`
+    times, each noted on standard error): late in the kernels phase the
+    sessions of a decode call of two kernels once held no record in three
+    tries back to back, and both records in a try a second later."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    empty = 0
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(4):
-                torch.cuda._sleep(0)
-            torch.cuda.synchronize()
-            prof.step()
-            fn()
-            torch.cuda.synchronize()
-        kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
-                      for e in _device_events(prof))
+        while True:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(4):
+                    torch.cuda._sleep(0)
+                torch.cuda.synchronize()
+                prof.step()
+                fn()
+                torch.cuda.synchronize()
+            kernels = sum(not e.name.startswith(("Memcpy", "Memset"))
+                          for e in _device_events(prof))
+            if kernels or empty == PROFILE_EMPTY_TRIES:
+                break
+            empty += 1
+            print(f"chip_smoke: profiler session with no kernel record "
+                  f"({empty}); again in a second", file=sys.stderr,
+                  flush=True)
+            time.sleep(1.0)
         if kernels >= sum(e.name in LAUNCH_CALLS for e in prof.events()):
             break
     return prof
@@ -947,10 +998,22 @@ def phase_kernels(torch):
             flash.append((dt, 1, 1000, H, Hkv, 64, 0, 512))
         if dt == "float32":
             flash.append((dt, 1, 2100, 16, 1, 256, 2048, 512))
+        # the dense paths' prefill (32 heads on 8) at head dim 160
+        # (stablelm-12b), causal and windowed, and 128 (llama3-8b,
+        # minitron-8b), at B = 1, 4; partial tiles at 160 (S = 100: a
+        # 64-row query tile and a 36-row one); in fp32 the model check's
+        # prompt (1024 positions)
+        for B in (1, 4):
+            for window in (0, 100):
+                flash.append((dt, B, 512, *DENSE_HEADS, 160, window, 512))
+            flash.append((dt, B, 512, *DENSE_HEADS, 128, 0, 512))
+        flash.append((dt, 2, 100, *DENSE_HEADS, 160, 48, 32))
+        if dt == "float32":
+            flash.append((dt, 1, 1024, *DENSE_HEADS, 160, 0, 512))
         if dt == "bfloat16":
             # the tensor-core kernel's other head dims, at GQA groups 7
             # (windowed) and 16 over a partial tile
-            for D in (16, 32, 128):
+            for D in (16, 32, 128, 160):
                 flash.append((dt, 2, 100, 14, 2, D, 48, 32))
                 flash.append((dt, 2, 100, 16, 1, D, 0, 32))
     # attn-tiny (the micro path): fp32, 2 heads of 16, its rungs' S = 16,
@@ -996,7 +1059,8 @@ def phase_kernels(torch):
         same_route("flash_attention", shape, dt, rule,
                    [flash_mod.launch(q, k, v, causal=True, window=window)],
                    [forced[rule]])
-        if D == 256 or tiny or (D == 64 and (H, Hkv) in D64_SERVING):
+        if D == 256 or tiny or (D == 64 and (H, Hkv) in D64_SERVING) or (
+                D == 160 and S == 512 and not window):
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(v, H // Hkv, 2).transpose(1, 2)
@@ -1123,6 +1187,18 @@ def phase_kernels(torch):
             decode.append((dt, 4, 1024, H, Hkv, 64, 1024, edges + (1024,)))
             for B in (1, 4):
                 decode.append((dt, B, 1024, H, Hkv, 64, 1024, (520,) * B))
+        # the dense paths' decode (32 heads on 8) at head dim 160
+        # (stablelm-12b) and 128 (llama3-8b, minitron-8b): the serve
+        # phase's 1024 slots with 520 valid at B = 1, 4; at 160 also
+        # lengths 0, 1, one split, one split + 1 and S, and the model
+        # check's 2048 slots (its last decode step's 1032 valid rows)
+        for D in (160, 128):
+            for B in (1, 4):
+                decode.append((dt, B, 1024, *DENSE_HEADS, D, 1024,
+                               (520,) * B))
+        decode.append((dt, 5, 1024, *DENSE_HEADS, 160, 1024,
+                       (0,) + edges + (1024,)))
+        decode.append((dt, 2, 2048, *DENSE_HEADS, 160, 2048, (1032, 2048)))
     for dt, B, S, H, Hkv, D, blk, lens in decode:
         dtype = getattr(torch, dt)
         q = randn((B, 1, H, D), dtype)
@@ -1154,7 +1230,8 @@ def phase_kernels(torch):
                    [decode_mod.launch(q, kc, vc, lengths)], [forced[rule]])
         lm_tiny = (dt == "float32" and (H, Hkv) == LM_TINY_HEADS
                    and S == LM_TINY_SLOTS and lens == (S,) * B)
-        if D == 256 or lm_tiny or (D == 64 and (H, Hkv) in D64_SERVING):
+        if D == 256 or lm_tiny or (D == 64 and (H, Hkv) in D64_SERVING) or (
+                D == 160 and lens == (520,) * B):
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(kc, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(vc, H // Hkv, 2).transpose(1, 2)
@@ -1204,6 +1281,28 @@ def phase_kernels(torch):
                 "library_ms": library["ms"],
                 "library_host_ms": library["host_ms"],
                 "bound_ms": bound_ms, "bound_by": bound_by})
+
+    # the tensor-core decode at head dim 160 (32 heads on 8) with each
+    # cluster size forced: lengths 0, 1, 5, 100 and S over 1024 and 4096
+    # slots (several tiles a rank)
+    for S in (1024, 4096):
+        B, (H, Hkv), D = 5, DENSE_HEADS, 160
+        q = randn((B, 1, H, D), torch.bfloat16)
+        kc = randn((B, S, Hkv, D), torch.bfloat16)
+        vc = randn((B, S, Hkv, D), torch.bfloat16)
+        lengths = torch.tensor((0, 1, 5, 100, S), device=dev,
+                               dtype=torch.int32)
+        want = ref.decode_attention_ref(q, kc, vc, lengths)
+        want[lengths == 0] = 0
+        shape = {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+                 "lengths": lengths.tolist()}
+        for c in decode_mod.CLUSTERS:
+            got = decode_mod.launch(q, kc, vc, lengths, force="tensor_core",
+                                    cluster=c)
+            torch.cuda.synchronize()
+            check("decode_attention", shape, "bfloat16", got, want,
+                  route="tensor_core", cluster=c)
+        del q, kc, vc
 
     # SSD: tests/test_kernels.py grid, a grouped case with P = 16 (the
     # tensor cores take it), one chunk (S = chunk), a chunk of 40 (not a
@@ -1382,7 +1481,7 @@ def phase_kernels(torch):
         f"D{D}/S{S}/cluster{c}":
             build.library("decode_attention")
             .decode_attention_max_active_clusters(D, S, c)
-        for D in (64, 256) for S in (512, 1024, 4096)
+        for D in (64, 128, 160, 256) for S in (512, 1024, 4096)
         for c in decode_mod.CLUSTERS}
 
     failed = [c for c in cases if not c["ok"]]
@@ -1403,6 +1502,12 @@ def phase_kernels(torch):
             if t["dtype"] == "float32" and t["shape"]["B"] == 4
             and t["shape"]["S"] == 512 and t["shape"]["H"] == 4
             and t["shape"]["window"] == 0),
+        # stablelm-12b's prefill at head dim 160 (32 heads on 8)
+        "flash_attention/stablelm-12b": next(
+            t for t in timings["flash_attention"]
+            if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
+            and t["shape"]["S"] == 512 and t["shape"]["D"] == 160
+            and t["shape"]["window"] == 0),
         # attn-tiny's largest serving cell: the short route's path
         "flash_attention/attn-tiny": next(
             t for t in timings["flash_attention"]
@@ -1415,6 +1520,12 @@ def phase_kernels(torch):
             and t["shape"]["S"] == 1024 and t["shape"]["H"] == 4
             and t["shape"]["lengths"] == [520] * 4)
            for dt, sfx in (("bfloat16", ""), ("float32", "/fp32"))},
+        # stablelm-12b's decode step at head dim 160 (32 heads on 8)
+        "decode_attention/stablelm-12b": next(
+            t for t in timings["decode_attention"]
+            if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
+            and t["shape"]["S"] == 1024 and t["shape"]["D"] == 160
+            and t["shape"]["lengths"] == [520] * 4),
         # lm-tiny's largest decode cell: B = 8 over its 64-slot cache
         "decode_attention/lm-tiny": next(
             t for t in timings["decode_attention"]
@@ -1454,9 +1565,18 @@ def phase_kernels(torch):
 # phase 3: full-width models, kernels vs the plain path
 # --------------------------------------------------------------------- #
 def phase_model(torch, name: str):
-    if not PATHS[name]:
-        return _model_check_incremental(torch, name)
-    from repro_torch.models.lm import decode_step, init_params, prefill
+    t_start = time.perf_counter()
+    rep = (_model_check_incremental(torch, name) if not PATHS[name]
+           else _model_check(torch, name))
+    rep["seconds"] = time.perf_counter() - t_start
+    return rep
+
+
+def _model_check(torch, name: str):
+    """One prompt and 8 decode steps through the kernels against the same
+    weights through the plain path, in fp32 and in bf16."""
+    from repro_torch.models.lm import (decode_step, init_params,
+                                       param_count, prefill)
     dev = torch.device("cuda")
     base = _config(name)
     S, max_len = MODEL_CHECK[name]
@@ -1490,6 +1610,7 @@ def phase_model(torch, name: str):
     with torch.no_grad():
         cfg = base.with_overrides(dtype="float32", use_pallas_kernels=True)
         params = init_params(cfg, 0, device=dev)
+        rep["param_count"] = param_count(params)
         k32, _, _ = run(cfg, params)
         p32, _, _ = run(cfg.with_overrides(use_pallas_kernels=False), params)
         del params
@@ -1580,7 +1701,7 @@ def _model_check_incremental(torch, name: str):
         cfg = base.with_overrides(dtype="float32")
         torch.cuda.reset_peak_memory_stats()
         params = init_params(cfg, 0, device=dev)
-        rep["params"] = param_count(params)
+        rep["param_count"] = param_count(params)
         f32, i32, _, _ = run(cfg, params)
         rep["fp32_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del params
@@ -2262,6 +2383,7 @@ def _traced(torch, fn, steps):
 
 def phase_trace(torch, name: str):
     from repro_torch.models.lm import decode_step, init_params, prefill
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     cfg = _config(name).with_overrides(use_pallas_kernels=True)  # bf16
     gen = torch.Generator().manual_seed(2)
@@ -2298,7 +2420,8 @@ def phase_trace(torch, name: str):
             "prompt": TRACE_PROMPT,
             "inputs": {k: list(v.shape) for k, v in batch.items()},
             "decode_steps": TRACE_DECODE,
-            "prefill": rep_prefill, "decode": rep_decode}
+            "prefill": rep_prefill, "decode": rep_decode,
+            "seconds": time.perf_counter() - t_start}
 
 
 # --------------------------------------------------------------------- #
@@ -2378,6 +2501,7 @@ def phase_serve(torch, name: str):
             emit({"phase": "serve", **rep})
             raise AssertionError(f"{name}, {policy}: not every prompt "
                                  "completed")
+    rep["seconds"] = time.perf_counter() - t0
     return rep
 
 

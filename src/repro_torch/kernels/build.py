@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # decode and SSD; 0 lets the shape decide; only flash has ``short``, and
 # the decode and SSD entries refuse its code)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)
 TENSOR_CORE_HEAD_DIMS = HEAD_DIMS[1:]   # mma needs a depth of 16
 # flash's short route: fp32, at most SHORT_MAX_SEQ query rows and keys
 SHORT_HEAD_DIMS = (8, 16, 32)

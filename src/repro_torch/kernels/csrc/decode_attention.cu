@@ -27,9 +27,10 @@
 // 0 (by shape), 1 (CUDA cores) or 2 (tensor cores), and it returns -1
 // where a forced route cannot take the shape.
 //
-// Tensor-core route (bf16, D = 16..256, rep <= 16): `decode_tc_kernel`,
-// one launch.  The C blocks of a thread-block cluster take one (KV head,
-// batch row); the wrapper picks C in {1, 2, 4, 8, 16} (8, or 16 where 8
+// Tensor-core route (bf16, D = 16, 32, 64, 128, 160 or 256, rep <= 16):
+// `decode_tc_kernel`, one launch.  The C blocks of a thread-block
+// cluster take one (KV head, batch row); the wrapper picks C in
+// {1, 2, 4, 8, 16} (8, or 16 where 8
 // ranks would loop over tiles, halved while the card cannot hold every
 // cluster at once: cudaOccupancyMaxActiveClusters).  Each block reads
 // lengths[b] on the device, clamps it to S, and takes its rank's share of
@@ -87,14 +88,18 @@
 //     on consecutive 16-byte chunks of consecutive rows, which hit
 //     distinct banks without padding;
 //   * all 8 warps compute scores: warp w takes keys 8w .. 8w + 7, the
-//     lanes of one dot product split D in 16-byte chunks (min(D / VEC,
-//     32) lanes; the other lanes of the warp take other keys), the query
-//     rows of a block of kRows sit in registers against each K chunk, and
-//     the partial sums meet by shuffles;
+//     lanes of one dot product split D in 16-byte chunks (the largest
+//     power of two up to 32 that divides the D / VEC chunks, each lane
+//     taking every such lane count-th chunk: 8 lanes of 5 chunks at
+//     D = 160 in fp32, 4 in bf16; the other lanes of the warp take other
+//     keys), the query rows of a block of kRows sit in registers against
+//     each K chunk, and the partial sums meet by shuffles;
 //   * one softmax over the split's 64 keys (no second tile, no rescale);
-//   * P V: threads run along D in 16-byte chunks and the key groups split
-//     the keys; partial sums meet by shuffles within a warp, then across
-//     warps in shared memory laid over the K tile, which is dead by then;
+//   * P V: threads run along D in 16-byte chunks (a key group as many
+//     lanes as a dot product, each lane its chunks one after the other)
+//     and the key groups split the keys; partial sums meet by shuffles
+//     within a warp, then across warps in shared memory laid over the K
+//     tile, which is dead by then;
 //   * groups above kRows rows loop over blocks of kRows query heads, so
 //     registers do not grow with the group (groups 17..32 and more).
 // Shared memory: 2 * 64 * D * sizeof(T) for K and V plus 4 * (rep * D +
@@ -181,7 +186,8 @@ __device__ __forceinline__ void load16(const bf16* p, float (&v)[8]) {
 
 bool tc_takes(int dtype, int D, int rep) {
   return dtype == 1 && rep >= 1 && rep <= kTcMaxGroup &&
-         (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
+         (D == 16 || D == 32 || D == 64 || D == 128 || D == 160 ||
+          D == 256);
 }
 
 size_t smem_bytes(int rep, int D, size_t elem) {
@@ -205,16 +211,29 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               float scale) {
   constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte chunk
   constexpr int CH = D / VEC;             // chunks per row: 1 .. 64
+  // lanes split a row's chunks by the largest power of two dividing CH:
+  // CH itself where it is one, 8 of fp32's 40 and 4 of bf16's 20 at
+  // D = 160, each lane then taking 5 chunks
+  constexpr int P2 = CH & -CH;
   // scores: LPK lanes per dot product, GPW dot products per warp pass,
   // CPL chunks per lane
-  constexpr int LPK = CH < 32 ? CH : 32;
+  constexpr int LPK = P2 < 32 ? P2 : 32;
   constexpr int GPW = 32 / LPK;
   constexpr int CPL = CH / LPK;
-  // P V: KG key groups of CH threads; NP partials of each output left
-  // after the shuffles (one per warp, or per key group when CH >= 32)
-  constexpr int KG = kThreads / CH;
-  constexpr int NP = CH < 32 ? kWarps : KG;
+  // P V: KG key groups of PL threads, each thread PC chunks one after the
+  // other; NP partials of each output left after the shuffles (one per
+  // warp, or per key group when a group spans warps)
+  constexpr int PL = P2;
+  constexpr int PC = CH / PL;
+  constexpr int KG = kThreads / PL;
+  constexpr int NP = PL < 32 ? kWarps : KG;
   static_assert(D % VEC == 0 && CH <= 64, "a row is 1 .. 64 chunks");
+  // every chunk has its lanes (none is dropped), the lanes of a dot
+  // product and of a key group meet by shuffles within a warp or fill
+  // whole warps, and the key groups tile the block
+  static_assert(CH % LPK == 0 && 32 % LPK == 0 && CH % PL == 0 &&
+                    kThreads % PL == 0 && (32 % PL == 0 || PL % 32 == 0),
+                "the lanes split the chunks evenly");
   static_assert(NP * kRows * D * sizeof(float) <= kSplit * D * sizeof(T),
                 "P V's partial sums fit over the K tile");
 
@@ -343,45 +362,50 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   mma::cp_async_wait<0>();
   __syncthreads();                        // V, p, m and l
 
-  // O = P V: thread (key group kg, chunk c) over keys kg, kg + KG, ...
-  const int c = tid % CH, kg = tid / CH;
+  // O = P V: thread (key group kg, lane lp) over keys kg, kg + KG, ...
+  // and chunks lp, lp + PL, ...
+  const int lp = tid % PL, kg = tid / PL;
   const size_t part = (size_t)(b * Hkv + hk) * gridDim.x + split;
   for (int r0 = 0; r0 < rep; r0 += kRows) {
-    float acc[kRows][VEC];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
-    for (int j = kg; j < n; j += KG) {
-      float v[VEC];
-      load16(vs + j * D + c * VEC, v);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = ps[(r0 + r) * kSplit + j];
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(p, v[e], acc[r][e]);
-      }
-    }
-    if (CH < 32) {                        // key groups within a warp
-#pragma unroll
-      for (int off = CH; off < 32; off <<= 1)
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
-    }
-    __syncthreads();                      // the last block's sums are read
-    if (CH >= 32 || lane < CH) {
-      const int pi = CH < 32 ? warp : kg;
+    for (int i = 0; i < PC; ++i) {
+      const int c = lp + PL * i;
+      float acc[kRows][VEC];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
 #pragma unroll
-        for (int e = 0; e < VEC; e += 4)
-          *reinterpret_cast<float4*>(red + (pi * kRows + r) * D + c * VEC +
-                                     e) =
-              make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2],
-                          acc[r][e + 3]);
+        for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+      for (int j = kg; j < n; j += KG) {
+        float v[VEC];
+        load16(vs + j * D + c * VEC, v);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float p = ps[(r0 + r) * kSplit + j];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(p, v[e], acc[r][e]);
+        }
+      }
+      if constexpr (PL < 32) {            // key groups within a warp
+#pragma unroll
+        for (int off = PL; off < 32; off <<= 1)
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+      }
+      if (i == 0) __syncthreads();        // the last block's sums are read
+      if (PL >= 32 || lane < PL) {
+        const int pi = PL < 32 ? warp : kg;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int e = 0; e < VEC; e += 4)
+            *reinterpret_cast<float4*>(red + (pi * kRows + r) * D + c * VEC +
+                                       e) =
+                make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2],
+                            acc[r][e + 3]);
+      }
     }
     __syncthreads();
     // the NP partials of each output, one float4 a thread
@@ -473,7 +497,9 @@ decode_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   constexpr int RS = D + 8;               // Q/K/V row stride (elements)
   constexpr int CH = D / 8;               // 16-byte chunks per row
   constexpr int NPAIR = D / 16;           // 16-column output slabs
-  constexpr int PPW = (NPAIR + kWarps - 1) / kWarps;  // slabs per warp
+  // slabs per warp; where they do not divide (10 slabs at D = 160) a
+  // warp's last slab may be past NPAIR, and every use of it is skipped
+  constexpr int PPW = (NPAIR + kWarps - 1) / kWarps;
   constexpr int DC = D / C;               // output columns a rank merges
   static_assert(DC >= 2 && DC % 2 == 0, "a rank merges column pairs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -828,6 +854,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
     case 64: return launch<T, 64>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
     case 128: return launch<T, 128>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
+    case 160: return launch<T, 160>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
     case 256: return launch<T, 256>(q, k, v, lengths, o, wa, wm, n_split, B, S, H, Hkv, scale, s);
     default: return -1;
   }
@@ -923,6 +950,7 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v,
     case 32: return launch_tc_if<32, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
     case 64: return launch_tc_if<64, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
     case 128: return launch_tc_if<128, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
+    case 160: return launch_tc_if<160, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
     case 256: return launch_tc_if<256, C>(q, k, v, lengths, o, B, S, H, Hkv, scale, s);
     default: return -1;
   }
@@ -941,6 +969,7 @@ int dispatch_max_clusters(int D, int S) {
     case 32: return max_clusters_if<32, C>(S);
     case 64: return max_clusters_if<64, C>(S);
     case 128: return max_clusters_if<128, C>(S);
+    case 160: return max_clusters_if<160, C>(S);
     case 256: return max_clusters_if<256, C>(S);
     default: return -1;
   }

@@ -68,30 +68,33 @@
 //     the two states weighed in block order.  So at gemma3-1b's check
 //     (B = 1, 4 heads) 256 blocks fill the card two to an SM, and the
 //     heaviest chain is 32 rows x 512 keys, a quarter of 64-row tiles in
-//     one block; KV tiles of 32 rows (16 at D = 256), ~100 KB of shared
-//     memory at D = 256, so two blocks share an SM;
+//     one block; KV tiles of 32 rows (16 at D = 160 and 256), ~100 KB
+//     of shared memory at D = 256, so two blocks share an SM;
 //   * masking as before, by position against the true Sq and Sk with the
 //     finite -0.7 FLT_MAX and the visible-tile bounds of causal and
 //     window; bf16 (forced) is staged as bf16 and widened on each load.
 // Attributes are set once per device.
 
-// Tensor-core route (bf16, D = 16..256): `flash_tc_kernel`, built from
-// Hopper's own parts (hopper.cuh) so the chain runs on the tensor cores
-// with nothing else in its way.  A block is two warpgroups that take
-// alternate KV tiles against the same 64-row Q tile (wgmma's M):
+// Tensor-core route (bf16, D = 16, 32, 64, 128, 160 or 256):
+// `flash_tc_kernel`, built from Hopper's own parts (hopper.cuh) so the
+// chain runs on the tensor cores with nothing else in its way.  A block
+// is two warpgroups that take alternate KV tiles against the same 64-row
+// Q tile (wgmma's M):
 //   * loads: one thread loads the Q tile once, and one thread of each
 //     warpgroup keeps that group's ring of three K/V stages full by TMA
-//     (4-d tensor maps, one box of 64 KV rows, 32 at D = 256, per 64
-//     columns, 128/64/32-byte swizzled as wgmma reads them; a full
-//     mbarrier a stage), refilling a stage once every warp of the group
-//     is done with it, so no copy costs the group more than a few
-//     instructions.  There is no producer warpgroup: ptxas gives every
+//     (4-d tensor maps, one box of 64 KV rows, 32 at D = 160 and 256,
+//     per 64 columns, 128/64/32-byte swizzled as wgmma reads them; at
+//     D = 160, whose 64-column blocks would leave 32 over, five blocks
+//     of 32 columns, 64-byte swizzled; a full mbarrier a stage),
+//     refilling a stage once every warp of the group is done with it, so
+//     no copy costs the group more than a few instructions.  There is
+//     no producer warpgroup: ptxas gives every
 //     thread of a block the launch bound's share of registers (168 with a
 //     third warpgroup) whatever setmaxnreg grants later, and at D = 256
 //     it then spilled and serialised the products; with two warpgroups a
 //     thread may hold up to 255, and ptxas uses 182 at D = 256 (O alone
-//     is 128 a thread), 138 at D = 128 and 82-109 up to D = 64, with no
-//     spill at any head dim;
+//     is 128 a thread), 130 at D = 160, 138 at D = 128 and 82-109 up to
+//     D = 64, with no spill at any head dim;
 //   * products: S = Q K^T by wgmma with both operands K-major in shared
 //     memory, O += P V by wgmma with P from registers (the accumulator
 //     rounded to bf16 in pairs) and V MN-major.  Step n issues S_n and
@@ -108,9 +111,9 @@
 // Sq or Sk arrive as zeros (TMA's out-of-bounds fill) and are masked by
 // position.  Under causal masking the grid walks query tiles heaviest
 // first.  Shared memory: the Q tile and the two rings (225 KB at
-// D = 256); up to D = 64 two blocks share an SM.  The tensor maps are
-// encoded on the host for each call (they hold the pointers), the
-// kernel's attributes set once per device.
+// D = 256, 141 KB at D = 160); up to D = 64 two blocks share an SM.  The
+// tensor maps are encoded on the host for each call (they hold the
+// pointers), the kernel's attributes set once per device.
 //
 // Short route (fp32, Sq and Sk <= 16, D = 8, 16 or 32): `flash_short_kernel`,
 // attn-tiny's path (2 heads of 16 over 16, 8 or 4 positions, B up to
@@ -193,9 +196,11 @@ constexpr int kCcThreads = 32 * kCcWarps;
 
 template <typename T, int D>
 struct CcTile {
-  // KV rows a tile: 32, and 16 at D = 256, so that two stages of K and V
-  // and the Q tile stay near 100 KB and two blocks share an SM
-  static constexpr int BKV = D == 256 ? 16 : 32;
+  // KV rows a tile: 32, and 16 above D = 128, so that two stages of K
+  // and V and the Q tile stay near 100 KB and two blocks share an SM; at
+  // D = 160 32 rows would fit two (107 KB in fp32) but take 220
+  // registers a thread against 162, and measured 6-11% slower
+  static constexpr int BKV = D > 128 ? 16 : 32;
   // scores: SD lanes split d (four elements a load), KG key groups; after
   // the sum over the SD lanes each lane keeps RPL rows x KPL keys
   static constexpr int SD = D / 4 < 8 ? D / 4 : 8;
@@ -204,7 +209,8 @@ struct CcTile {
   static constexpr int RPL = kCcRows / SD;
   static constexpr int DPL = D / SD / 4;  // loads of d a lane per row
   // P V: LPR lanes across a row of O, PVG row groups of PVR rows, CPL
-  // columns a lane
+  // columns a lane (a multiple of 4: float4 runs LPR apart; else CPL
+  // adjacent columns, as the 5 a lane at D = 160)
   static constexpr int LPR = D < 32 ? D : 32;
   static constexpr int PVG = 32 / LPR;
   static constexpr int PVR = kCcRows / PVG;
@@ -224,6 +230,8 @@ struct CcTile {
       sizeof(float) * kCcWarps * P_FLOATS;
   static_assert(D % (4 * SD) == 0 && BKV % KG == 0 && KPL >= 1, "tiles");
   static_assert(kCcRows % SD == 0 && CPL >= 1, "lanes");
+  // every column of Q K^T and of O has its lane: none is dropped
+  static_assert(DPL * SD * 4 == D && CPL * LPR == D, "columns");
   static_assert((KS * sizeof(T)) % 16 == 0 && (D * sizeof(T)) % 16 == 0,
                 "16-byte rows for cp.async");
   // after the tiles the partner's O at this block's columns (32 x D / 2)
@@ -253,7 +261,7 @@ __device__ __forceinline__ void reduce_half(float (&s)[kCcRows][KPL],
 template <typename T, int CPL, int LPR>
 __device__ __forceinline__ void load_cols(const T* row, int lc,
                                           float (&v)[CPL]) {
-  if constexpr (CPL >= 4) {
+  if constexpr (CPL % 4 == 0) {
 #pragma unroll
     for (int u = 0; u < CPL / 4; ++u) {
       const float4 x = ld4f(row + 4 * (lc + LPR * u));
@@ -271,7 +279,7 @@ __device__ __forceinline__ void load_cols(const T* row, int lc,
 // the column of O that a lane's c-th accumulator holds
 template <int CPL, int LPR>
 __device__ __forceinline__ int col_of(int lc, int c) {
-  return CPL >= 4 ? 4 * (lc + LPR * (c / 4)) + c % 4 : CPL * lc + c;
+  return CPL % 4 == 0 ? 4 * (lc + LPR * (c / 4)) + c % 4 : CPL * lc + c;
 }
 
 template <typename T, int D>
@@ -576,6 +584,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+    case 160: return launch<T, 160>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     default: return -1;
   }
@@ -593,11 +602,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct TcTile {
-  // KV rows a tile: 64, and 32 at D = 256 (six stages of 64 rows would
-  // not fit the SM's shared memory)
-  static constexpr int BKV = D == 256 ? 32 : 64;
-  static constexpr int W = D < 64 ? D : 64;       // columns of a block
+  // KV rows a tile: 64, and 32 above D = 128 (six stages of 64 rows
+  // would not fit the SM's shared memory at D = 160 or 256)
+  static constexpr int BKV = D > 128 ? 32 : 64;
+  // columns of a block: 64 where they divide D, else 32 (D = 160: five
+  // blocks, 64-byte swizzled), else D (16)
+  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : D;
   static constexpr int NB = D / W;                // column blocks a row
+  static_assert(NB * W == D && D % 16 == 0, "every column in a block");
   static constexpr int SW = 2 * W;                // swizzle bytes
   static constexpr int Q_BYTES = kTcBQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;    // one K or V tile
@@ -1016,6 +1028,7 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v, void* o,
     case 32: return launch_tc<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 64: return launch_tc<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 128: return launch_tc<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+    case 160: return launch_tc<160>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 256: return launch_tc<256>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     default: return -1;
   }
@@ -1023,7 +1036,7 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v, void* o,
 
 bool tc_takes(int dtype, int D) {
   return dtype == 1 && (D == 16 || D == 32 || D == 64 || D == 128 ||
-                        D == 256);
+                        D == 160 || D == 256);
 }
 
 // ---------------------------------------------------------------------
@@ -1189,7 +1202,7 @@ bool short_takes(int dtype, int Sq, int Sk, int D) {
 
 // Returns 0 on success, the cudaError_t of a refused launch, or -1 for a
 // shape / dtype the chosen route is not built for.  dtype: 0 fp32, 1
-// bf16.  route: 0 by shape (tensor cores for bf16 with D = 16..256, the
+// bf16.  route: 0 by shape (tensor cores for bf16 at every D but 8, the
 // short route for fp32 with Sq, Sk <= 16 and D = 8, 16 or 32, else CUDA
 // cores), 1 CUDA cores, 2 tensor cores, 3 short.
 extern "C" int flash_attention_fwd(const void* q, const void* k,

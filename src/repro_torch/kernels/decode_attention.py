@@ -7,8 +7,9 @@ kernels are ``csrc/decode_attention.cu`` (built for sm_90a by
 the design answers.
 
 The library has two routes, chosen by dtype, head dim and GQA group
-before the launch (:func:`route`).  bf16 with a head dim of 16..256 and
-at most 16 query heads per KV head runs the tensor-core kernel
+before the launch (:func:`route`).  bf16 with a head dim of 16, 32,
+64, 128, 160 or 256 and at most 16 query heads per KV head runs the
+tensor-core kernel
 (``mma.sync``) as one launch: a thread-block cluster of up to 16
 blocks per (batch row, KV head) shares the valid rows (:func:`rank_rows`)
 and merges its softmax states in distributed shared memory; the cluster

@@ -6,9 +6,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 source note says what bounds it on an H100 and how the design answers.
 
 The library has three routes, chosen by dtype and shape before the
-launch (:func:`route`): bf16 with a head dim of 16..256 runs the
-tensor-core kernel (``wgmma`` fed by TMA); fp32 with at most 16 query
-rows and keys and a head dim of 8, 16 or 32 (attn-tiny) the
+launch (:func:`route`): bf16 with a head dim of 16, 32, 64, 128, 160
+or 256 runs the tensor-core kernel (``wgmma`` fed by TMA); fp32 with at
+most 16 query rows and keys and a head dim of 8, 16 or 32 (attn-tiny) the
 short-sequence kernel, one warp per (batch, head); every other shape
 the CUDA-core kernel.  :func:`flash_attention` always lets the shape
 decide;

@@ -19,7 +19,8 @@ of length 0 is 0, as from the TPU kernel), and the SSD at a chunk of
 call is one cluster launch on the tensor cores and three passes on the
 CUDA cores; a decode call one on the tensor cores, two past one split on
 the CUDA cores).  The bf16 tensor-core kernels run at every
-head dim 16-256 (GQA groups 1, 7 and 16, windows, partial tiles) and,
+head dim 16-256, 160 included (GQA groups 1, 4, 7 and 16, windows,
+partial tiles; stablelm-12b's 32 heads on 8 at 160), and,
 for the SSD, at mamba2-130m's serving calls, at one chunk, 5, 12, 16
 and 32 chunks, at chunk 128, N up to 272 and with the state in tiles (P
 = 96 and 128 in row tiles, N = 512 in column tiles, P = N = 256 in
@@ -199,6 +200,9 @@ FLASH_ROUTE_GRID = [
     (1, 512, 16, 16, 64, 0, 512),    # seamless-m4t-medium decoder
     (1, 512, 14, 2, 64, 0, 512),     # internvl2-1b: a group of 7
     (2, 100, 14, 2, 64, 0, 512),     # group 7, ragged (padding path)
+    (1, 512, 32, 8, 160, 0, 512),    # stablelm-12b: head dim 160
+    (2, 100, 32, 8, 160, 48, 32),    # and ragged, windowed
+    (1, 512, 32, 8, 128, 0, 512),    # llama3-8b, minitron-8b
 ]
 
 
@@ -262,7 +266,7 @@ def test_cuda_ssd_scan_routes_match_plain(cuda, B, S, H, P, G, N, chunk,
 # windows, partial tiles (S = 100: a 64-row tile and a 36-row one)
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("H,Hkv", [(4, 4), (14, 2), (16, 1)])
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 160, 256])
 def test_cuda_flash_tensor_core_head_dims_groups_windows(cuda, D, H, Hkv,
                                                          window):
     from repro_torch.kernels import flash_attention as flash_mod
@@ -410,6 +414,13 @@ DECODE_ROUTE_GRID = [(*case, None) for case in DECODE_GRID] + [
     (3, 256, 24, 1, 256, (0, 64, 256)),
     (3, 1024, 17, 1, 256, (1, 520, 1024)),
     (2, 512, 20, 2, 128, (65, 512)),
+    # the dense paths, 32 heads on 8: stablelm-12b at head dim 160 (the
+    # CUDA-core kernel's 5 chunks a lane), its model check's 2048 slots,
+    # and llama3-8b / minitron-8b at 128
+    (5, 1024, 32, 8, 160, (0,) + DECODE_EDGES + (1024,)),
+    (4, 1024, 32, 8, 160, (520,) * 4),
+    (2, 2048, 32, 8, 160, (1032, 2048)),
+    (4, 1024, 32, 8, 128, (520,) * 4),
 ]
 
 
@@ -458,8 +469,9 @@ def _decode_kernels(route, S):
 DECODE_TC_GRID = [
     # B, S, H, Hkv, D, lengths
     *[(5, 1024, 4, 1, D, (0, 1, 5, 520, 1024)) for D in (16, 32, 64, 128,
-                                                         256)],
+                                                         160, 256)],
     (3, 4096, 16, 1, 256, (2100, 4096, 9)),
+    (3, 4096, 32, 8, 160, (2100, 4096, 9)),
     (3, 4096, 7, 1, 16, (4096, 1, 3000)),
     (4, 256, 14, 2, 64, (0, 7, 100, 256)),
     (2, 512, 16, 16, 32, (333, 512)),
@@ -503,11 +515,17 @@ def _kernel_records(fn, name, calls, tries=5):
     """``fn`` ``calls`` times under the profiler: the device records of
     kernels whose name holds ``name``.  The tracer can drop records late in
     a process (never add them), so a session that holds other than
-    ``calls`` records is run again, at most ``tries`` times; each session
-    starts with a warm-up step of empty kernels, whose records it does not
+    ``calls`` records is run again, at most ``tries`` times, a second
+    later where it held no record at all (late in a process, sessions
+    taken back to back have all come back empty); each session starts
+    with a warm-up step of empty kernels, whose records it does not
     keep."""
+    import time
     from torch.profiler import ProfilerActivity, profile, schedule
+    records = None
     for _ in range(tries):
+        if records == 0:
+            time.sleep(1.0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
@@ -532,8 +550,9 @@ def _kernel_records(fn, name, calls, tries=5):
 # multiple of its 32-row query tiles or its KV tiles
 FLASH_CC_GRID = [
     # B, Sq, Sk, H, Hkv, D, causal, window
-    *[(2, 100, 100, 4, 2, D, True, 0) for D in (8, 16, 32, 64, 128, 256)],
-    *[(1, 77, 77, 14, 2, D, True, 33) for D in (16, 64, 256)],
+    *[(2, 100, 100, 4, 2, D, True, 0) for D in (8, 16, 32, 64, 128, 160,
+                                                 256)],
+    *[(1, 77, 77, 14, 2, D, True, 33) for D in (16, 64, 160, 256)],
     (2, 40, 130, 4, 1, 64, True, 0),
     (2, 130, 40, 4, 4, 32, True, 0),
     (1, 90, 50, 2, 1, 256, False, 0),
@@ -695,6 +714,26 @@ def test_cuda_flash_short_route_refuses_past_its_limits(cuda, dtype, Sq, Sk,
     want = ref.flash_attention_ref(q, k, v, causal=True)
     _close(flash_mod.launch(q, k, v, causal=True, window=0).cpu(),
            want.cpu().float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_head_dim_without_a_kernel_raises(cuda, dtype):
+    """A CUDA call at a head dim outside ``build.HEAD_DIMS`` (96) raises
+    ``ValueError`` in both wrappers before any launch, and nothing falls
+    back to the plain version."""
+    from repro_torch.kernels import build
+    assert 96 not in build.HEAD_DIMS
+    q, kc = (_t(x, dtype).to(cuda) for x in _inputs(
+        20, (1, 64, 4, 96), (1, 64, 2, 96)))
+    lengths = torch.full((1,), 64, device=cuda, dtype=torch.int32)
+    before = {n: (dict(s.launches_by_route), s.cpu_calls)
+              for n, s in KERNEL_STATS.items()}
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, kc, kc, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q[:, :1], kc, kc, lengths)
+    assert {n: (dict(s.launches_by_route), s.cpu_calls)
+            for n, s in KERNEL_STATS.items()} == before
 
 
 def test_cuda_short_route_is_flash_only(cuda):

@@ -79,6 +79,9 @@ def _np(x):
     ("bfloat16", 16, 2, "tensor_core"),
     ("bfloat16", 8, 4, "cuda_core"),         # below mma's depth of 16
     ("bfloat16", 256, 32, "cuda_core"),      # beyond mma's 16 rows
+    ("bfloat16", 160, 4, "tensor_core"),     # stablelm-12b
+    ("bfloat16", 128, 4, "tensor_core"),     # llama3-8b, minitron-8b
+    ("float32", 160, 4, "cuda_core"),        # stablelm-12b's model check
     ("float32", 256, 4, "cuda_core"),        # TF32 misses fp32's 2e-5
     ("float32", 8, 1, "cuda_core"),
 ])
@@ -151,6 +154,24 @@ def test_cpu_tensors_take_the_plain_route_at_new_route_shapes():
 # --------------------------------------------------------------------- #
 # decode: a mirror of the tensor-core split kernel and the combine
 # --------------------------------------------------------------------- #
+def decode_cc_lanes(D, elem):
+    """``decode_kernel``'s lane layout (``csrc/decode_attention.cu``) at
+    head dim D and ``elem`` bytes an element: 16-byte chunks of VEC
+    elements, CH a row; LPK lanes a dot product (the largest power of two
+    up to 32 that divides CH), each summing its CPL chunks lp, lp + LPK,
+    ...; for P V key groups of PL lanes (the largest power of two dividing
+    CH), each taking its PC chunks lp, lp + PL, ... one after the other,
+    KG groups a 256-thread block, NP partial sums an output."""
+    vec = 16 // elem
+    ch = D // vec
+    p2 = ch & -ch
+    lpk = min(p2, 32)
+    kg = 256 // p2
+    return {"VEC": vec, "CH": ch, "LPK": lpk, "CPL": ch // lpk,
+            "GPW": 32 // lpk, "PL": p2, "PC": ch // p2, "KG": kg,
+            "NP": 8 if p2 < 32 else kg}
+
+
 def decode_split_mirror(q, kc, vc, lengths, split=decode_mod.SPLIT_ROWS):
     """The split kernels and combine, in fp32 on the CPU.
 
@@ -160,12 +181,27 @@ def decode_split_mirror(q, kc, vc, lengths, split=decode_mod.SPLIT_ROWS):
     m), l = sum p, and acc = p @ V, with p rounded to bf16 first for bf16
     tensors (the tensor-core kernel's P operand); the combine weighs each
     split by exp(m_s - max m), sums l and acc, and divides (l at least
-    1e-30).  A row with no live split is 0.
+    1e-30).  A row with no live split is 0.  The sums follow the
+    CUDA-core kernel's lanes (:func:`decode_cc_lanes`): a score is the sum
+    of its LPK lanes' partial dot products over their chunks, and each
+    16-byte chunk of acc comes from the one lane that owns it, so a
+    layout that left a chunk without a lane would leave it out here too.
     """
     B, _, H, D = q.shape
     S, Hkv = kc.shape[1], kc.shape[2]
     rep = H // Hkv
     scale = 1.0 / math.sqrt(D)
+    lanes = decode_cc_lanes(D, q.element_size())
+    vec = lanes["VEC"]
+
+    def chunk(c):
+        return list(range(c * vec, (c + 1) * vec))
+    # the columns each scoring lane sums, and the P V lanes' chunks
+    score_cols = [sum((chunk(lp + lanes["LPK"] * i)
+                       for i in range(lanes["CPL"])), [])
+                  for lp in range(lanes["LPK"])]
+    pv_chunks = [lp + lanes["PL"] * i for lp in range(lanes["PL"])
+                 for i in range(lanes["PC"])]
     out = torch.zeros((B, H, D), dtype=torch.float32)
     for b in range(B):
         length = min(int(lengths[b]), S)
@@ -178,14 +214,18 @@ def decode_split_mirror(q, kc, vc, lengths, split=decode_mod.SPLIT_ROWS):
                 hi = min(lo + split, length)
                 k = kc[b, lo:hi, hk].float()
                 v = vc[b, lo:hi, hk].float()
-                s = qg @ k.T * scale
-                s = torch.cat([s, torch.full((rep, lo + split - hi),
-                                             NEG_INF)], 1)
+                s = sum(qg[:, cols] @ k[:, cols].T for cols in score_cols)
+                s = torch.cat([s * scale, torch.full((rep, lo + split - hi),
+                                                     NEG_INF)], 1)
                 m = s.max(-1).values
                 p = torch.exp(s - m[:, None])
                 ls.append(p.sum(-1))
                 ms.append(m)
-                accs.append(p[:, :hi - lo].to(q.dtype).float() @ v)
+                pr = p[:, :hi - lo].to(q.dtype).float()
+                acc = torch.zeros((rep, D))
+                for c in pv_chunks:
+                    acc[:, chunk(c)] = pr @ v[:, chunk(c)]
+                accs.append(acc)
             if not ms:
                 continue
             m = torch.stack(ms)                          # (n_live, rep)
@@ -236,6 +276,10 @@ LM_TINY_MIRROR_CASES = [
     # past one split: the combine; a group of 32 (the route's row blocks)
     (2, 256, 2, 1, 16, (65, 256)),
     (2, 256, 32, 1, 64, (130, 256)),
+    # stablelm-12b's head dim 160 (40 chunks: 8 lanes of 5), 4 heads on 1
+    # and 8 on 2, past one split and within one
+    (2, 256, 8, 2, 160, (65, 256)),
+    (3, 192, 4, 1, 160, (1, 64, 191)),
 ]
 
 
@@ -349,6 +393,32 @@ def test_decode_wrapper_sizes_each_route_by_dtype(monkeypatch, dtype, S, H,
     assert stats.calls_by_shape[(dtype, B, S, H, Hkv, D)] >= 1
 
 
+@pytest.mark.parametrize("D", build.HEAD_DIMS)
+@pytest.mark.parametrize("elem", [4, 2])
+def test_decode_cc_lanes_split_every_chunk_evenly(D, elem):
+    """The CUDA-core kernel's lane layout at every head dim it is built
+    for, in fp32 and bf16, as its static asserts require: the scoring
+    lanes hold every chunk of a row once (at D = 160, min(CH, 32) lanes
+    would give fp32's 40 chunks 32 lanes of one chunk and drop 8), the
+    lanes of a dot product and of a key group meet within a warp or fill
+    whole warps, the key groups tile the 256 threads, and P V's partial
+    sums fit over the 64-row K tile."""
+    lanes = decode_cc_lanes(D, elem)
+    ch, lpk, pl = lanes["CH"], lanes["LPK"], lanes["PL"]
+    held = sorted(lp + lpk * i for lp in range(lpk)
+                  for i in range(lanes["CPL"]))
+    assert held == list(range(ch))
+    assert sorted(lp + pl * i for lp in range(pl)
+                  for i in range(lanes["PC"])) == list(range(ch))
+    assert 32 % lpk == 0 and lanes["GPW"] * lpk == 32
+    assert 256 % pl == 0 and (32 % pl == 0 or pl % 32 == 0)
+    assert lanes["KG"] * pl == 256
+    assert lanes["NP"] * 4 * D * 4 <= 64 * D * elem
+    if D == 160:
+        assert (lanes["LPK"], lanes["CPL"]) == ((8, 5) if elem == 4
+                                                else (4, 5))
+
+
 def test_decode_split_mirror_gives_zero_for_an_empty_row():
     """A row of length 0 is 0, as the TPU kernel gives it (the plain
     versions of both packages average V there, so the Pallas kernel is
@@ -432,6 +502,11 @@ DECODE_CLUSTER_CASES = [
     (2, 512, 14, 2, 64, (333, 512), 4),              # two KV heads
     (2, 1024, 16, 16, 64, (520, 9), 2),
     (3, 256, 4, 1, 32, (0, 200, 256), 1),            # one block
+    # stablelm-12b's head dim 160: 10 slabs over 8 warps, 10 columns a
+    # rank at a cluster of 16
+    (5, 1024, 8, 2, 160, (0, 1, 5, 100, 1024), 16),
+    (2, 4096, 4, 1, 160, (4096, 2100), 8),
+    (2, 512, 4, 1, 160, (333, 512), 2),
 ]
 
 

@@ -73,6 +73,10 @@ def one_cpu_thread():
     ("bfloat16", 16, 64, 64, "tensor_core"),
     ("bfloat16", 64, 512, 512, "tensor_core"),
     ("bfloat16", 16, 16, 16, "tensor_core"),   # short bf16: tensor cores
+    ("bfloat16", 160, 512, 512, "tensor_core"),  # stablelm-12b
+    ("bfloat16", 128, 512, 512, "tensor_core"),  # llama3-8b, minitron-8b
+    ("bfloat16", 96, 512, 512, "cuda_core"),   # no kernel: the wrapper
+    ("float32", 160, 1024, 1024, "cuda_core"),  # stablelm-12b's check
     ("bfloat16", 8, 64, 64, "cuda_core"),      # below mma's depth of 16
     ("bfloat16", 8, 16, 16, "cuda_core"),      # the short route is fp32
     ("float32", 256, 512, 512, "cuda_core"),   # TF32 misses fp32's 2e-5
@@ -90,6 +94,15 @@ def one_cpu_thread():
 ])
 def test_flash_route_rule(dtype, D, sq, sk, want):
     assert flash_mod.route(dtype, D, sq, sk) == want
+
+
+def test_head_dims_the_kernels_are_built_for():
+    """The C entries' head dims: every one the registered configurations
+    use on one card (8 for lm-tiny's rungs, 160 for stablelm-12b), and
+    the tensor cores all but 8, below mma's depth of 16."""
+    assert build.HEAD_DIMS == (8, 16, 32, 64, 128, 160, 256)
+    assert build.TENSOR_CORE_HEAD_DIMS == (16, 32, 64, 128, 160, 256)
+    assert build.SHORT_HEAD_DIMS == (8, 16, 32)
 
 
 @pytest.mark.parametrize("dtype,P,N,chunk,want", [
@@ -586,8 +599,43 @@ TC_BLOCK_Q = 64
 
 def _tc_block_kv(head_dim):
     """KV rows a tile of ``flash_tc_kernel`` (``TcTile<D>::BKV``): 64, and
-    32 at head dim 256, where six 64-row stages would not fit an SM."""
-    return 32 if head_dim == 256 else 64
+    32 above head dim 128 (160 and 256), where six 64-row stages would not
+    fit an SM."""
+    return 32 if head_dim > 128 else 64
+
+
+def _tc_column_block(head_dim):
+    """Columns of one TMA box and one P V ``wgmma`` (``TcTile<D>::W``): 64
+    where they divide D, else 32 (D = 160: five blocks), else D."""
+    return (64 if head_dim % 64 == 0 else 32 if head_dim % 32 == 0
+            else head_dim)
+
+
+def _tc_smem_bytes(head_dim):
+    """``TcTile<D>::SMEM``: alignment slack, the Q tile, the two
+    warpgroups' rings of three K/V stages, the barriers."""
+    q = TC_BLOCK_Q * head_dim * 2
+    ring = 2 * 3 * 2 * _tc_block_kv(head_dim) * head_dim * 2
+    return 1024 + q + ring + 8 * (1 + 2 * 3)
+
+
+@pytest.mark.parametrize("D", build.TENSOR_CORE_HEAD_DIMS)
+def test_flash_tc_column_blocks_cover_every_column(D):
+    """The column blocks of the tensor-core kernel tile the head dim: no
+    column goes unloaded or unmultiplied (64-column blocks would leave 32
+    of D = 160's columns over); each block's bytes are a TMA swizzle width
+    (32, 64 or 128); the scores' 16-deep k-steps stay inside one block;
+    and the block's shared memory fits the card, with the merge of the
+    two warpgroups' states inside the idle rings."""
+    W = _tc_column_block(D)
+    assert D % W == 0 and 2 * W in (32, 64, 128)
+    cols = [nb * W + c for nb in range(D // W) for c in range(W)]
+    assert cols == list(range(D))
+    for kk in range(D // 16):
+        assert (kk * 16) // W == (kk * 16 + 15) // W
+    assert _tc_smem_bytes(D) <= build.MAX_SMEM_BYTES
+    merge = 16 * 128 * (D // 8 + 1)
+    assert merge <= 2 * 3 * 2 * _tc_block_kv(D) * D * 2
 
 
 def _tc_tiles(sq, sk, causal, window, head_dim):
@@ -613,7 +661,7 @@ def _visible(q, k, causal, window):
     return (not causal or k <= q) and (window == 0 or k > q - window)
 
 
-@pytest.mark.parametrize("D", [64, 256])       # 64- and 32-row KV tiles
+@pytest.mark.parametrize("D", [64, 160, 256])  # 64-, 32-, 32-row KV tiles
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [0, 16, 100])
 @pytest.mark.parametrize("S", [1, 33, 64, 100, 257])
@@ -645,9 +693,54 @@ CC_SPLIT = 2
 
 def _cc_block_kv(head_dim):
     """KV rows a tile of ``flash_fwd_kernel`` (``CcTile<T, D>::BKV``): 32,
-    and 16 at head dim 256, where two 32-row stages would not leave room
-    for two blocks an SM."""
-    return 16 if head_dim == 256 else 32
+    and 16 above head dim 128: at 256 two 32-row stages would not leave
+    room for two blocks an SM, at 160 they measured slower."""
+    return 16 if head_dim > 128 else 32
+
+
+def _cc_lanes(head_dim):
+    """``CcTile<T, D>``'s lane split of one warp's 8 rows: for the scores
+    SD lanes across d (4 elements a load, DPL loads a row) and KG key
+    groups; for P V, LPR lanes across a row of O, CPL columns each, where
+    a lane's c-th column is ``col_of``'s (float4 runs LPR apart when CPL
+    is a multiple of 4, else CPL adjacent columns)."""
+    sd = min(head_dim // 4, 8)
+    lpr = min(head_dim, 32)
+    cpl = head_dim // lpr
+    if cpl % 4 == 0:
+        def col(lc, c):
+            return 4 * (lc + lpr * (c // 4)) + c % 4
+    else:
+        def col(lc, c):
+            return cpl * lc + c
+    return {"SD": sd, "KG": 32 // sd, "DPL": head_dim // sd // 4,
+            "LPR": lpr, "CPL": cpl, "col": col}
+
+
+def _cc_smem_bytes(head_dim, elem):
+    """``CcTile<T, D>::SMEM``: the Q tile, two stages of K (rows padded)
+    and V, and each warp's P and its 16 floats."""
+    bkv, kg = _cc_block_kv(head_dim), _cc_lanes(head_dim)["KG"]
+    ks = head_dim + (32 if kg == 4 else 16) // elem
+    p_floats = 8 * (bkv + 4) + 16
+    return (elem * (CC_BLOCK_Q * head_dim + 2 * bkv * ks
+                    + 2 * bkv * head_dim) + 4 * 4 * p_floats)
+
+
+@pytest.mark.parametrize("D", build.HEAD_DIMS)
+def test_flash_cc_lanes_cover_every_column_once(D):
+    """Every element of d is summed by the scores' lanes (DPL loads of 4
+    at SD lanes), every column of O is held by exactly one P V lane (CPL =
+    5 at D = 160, whose float4 runs would reach past D), and two fp32
+    blocks share an SM (each at most half of its 228 KB, less 1 KB
+    reserved a block), so the fp32 model checks keep two blocks a SM."""
+    lanes = _cc_lanes(D)
+    assert lanes["DPL"] * lanes["SD"] * 4 == D
+    held = sorted(lanes["col"](lc, c) for lc in range(lanes["LPR"])
+                  for c in range(lanes["CPL"]))
+    assert held == list(range(D))
+    for elem in (4, 2):
+        assert 2 * (_cc_smem_bytes(D, elem) + 1024) <= 228 * 1024
 
 
 def _cc_blocks(sq, sk, causal, window, head_dim):
@@ -674,7 +767,7 @@ def _cc_blocks(sq, sk, causal, window, head_dim):
     return blocks
 
 
-@pytest.mark.parametrize("D", [64, 256])       # 32- and 16-row KV tiles
+@pytest.mark.parametrize("D", [64, 160, 256])  # 32-, 16-, 16-row KV tiles
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [0, 16, 100])
 @pytest.mark.parametrize("S", [1, 33, 64, 100, 257])
@@ -791,6 +884,7 @@ def _flash_tc_model(q, k, v, *, causal, window):
     (2, 100, 2, 2, 64, 33, True),
     (1, 70, 2, 1, 128, 16, False),
     (1, 100, 4, 1, 256, 0, False),   # gemma3-1b's head dim
+    (1, 100, 8, 2, 160, 0, True),    # stablelm-12b's head dim, 32-row tiles
 ])
 def test_flash_tc_model_matches_references(B, S, H, Hkv, D, window,
                                            jax_too):

@@ -51,19 +51,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # (B, S, H, Hkv, D): row 2a (gemma3-1b's global cache) at B = 4 and 1,
 # recurrentgemma-9b's group of 16, the head-dim-64 paths (16 on 16, 14
-# on 2) at B = 1 and 4; chip_smoke.DECODE_VALID valid rows, as the serve
-# phase leaves them
+# on 2) at B = 1 and 4, the dense paths' 32 heads on 8 (stablelm-12b's
+# head dim 160 at B = 1 and 4, llama3-8b's and minitron-8b's 128);
+# chip_smoke.DECODE_VALID valid rows, as the serve phase leaves them
 DECODE_SHAPES = ((4, 1024, 4, 1, 256), (1, 1024, 4, 1, 256),
                  (1, 1024, 16, 1, 256), (4, 1024, 16, 1, 256),
                  (1, 1024, 16, 16, 64), (4, 1024, 16, 16, 64),
-                 (1, 1024, 14, 2, 64), (4, 1024, 14, 2, 64))
+                 (1, 1024, 14, 2, 64), (4, 1024, 14, 2, 64),
+                 (1, 1024, 32, 8, 160), (4, 1024, 32, 8, 160),
+                 (4, 1024, 32, 8, 128))
 # (B, S, H, Hkv, D, window), causal: row 1a's shape in fp32, gemma3-1b's
 # fp32 model check (1024 positions, global and its 512 window), the
 # head-dim-64 model checks (1000 positions), recurrentgemma-9b's (2100
-# positions, window 2048)
+# positions, window 2048), stablelm-12b's (1024 positions, 32 heads on 8
+# of 160) and its prefill's shape at B = 4
 FLASH_SHAPES = ((4, 512, 4, 1, 256, 0), (1, 1024, 4, 1, 256, 0),
                 (1, 1024, 4, 1, 256, 512), (1, 1000, 16, 16, 64, 0),
-                (1, 1000, 14, 2, 64, 0), (1, 2100, 16, 1, 256, 2048))
+                (1, 1000, 14, 2, 64, 0), (1, 2100, 16, 1, 256, 2048),
+                (1, 1024, 32, 8, 160, 0), (4, 512, 32, 8, 160, 0))
 # (B, S, H, P, G, N, chunk): mamba2-130m's prefill at B = 1, 2, 4 (row 3a
 # at B = 4), then chip_smoke.py's wide bf16 shapes
 SSD_SHAPES = ((1, 512, 24, 64, 1, 128, 64), (2, 512, 24, 64, 1, 128, 64),
@@ -170,6 +175,8 @@ def worker(src: str, calls: dict, kernels=KERNELS) -> dict:
     if "decode" not in kernels:
         shapes = []
     for B, S, H, Hkv, D, n_calls in shapes:
+        if D not in build.HEAD_DIMS:      # a checkout without that kernel
+            continue
         q, kc, vc = inputs(B + S + H + D, ((B, 1, H, D), (B, S, Hkv, D),
                                            (B, S, Hkv, D)), torch.bfloat16)
         valid = min(cs.DECODE_VALID, S)
@@ -202,6 +209,8 @@ def worker(src: str, calls: dict, kernels=KERNELS) -> dict:
     flash = []
     for B, S, H, Hkv, D, window in (FLASH_SHAPES if "flash" in kernels
                                     else ()):
+        if D not in build.HEAD_DIMS:
+            continue
         q, k, v = inputs(B + S + H + D + window,
                          ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)),
                          torch.float32)
@@ -224,7 +233,9 @@ def worker(src: str, calls: dict, kernels=KERNELS) -> dict:
     occupancy = {}
     lib = build.library("decode_attention")
     if sizes and "decode" in kernels:
-        for D in (64, 256):
+        for D in (64, 160, 256):
+            if D not in build.HEAD_DIMS:
+                continue
             for S in (512, 1024, 4096):
                 for c in sizes:
                     occupancy[f"D{D}/S{S}/cluster{c}"] = \
@@ -241,24 +252,35 @@ def _mean(xs):
     return sum(xs) / len(xs)
 
 
+def _rows(run: dict, kind: str) -> dict:
+    """A worker's rows of one kind by (shape, calls)."""
+    return {(json.dumps(r["shape"], sort_keys=True), r.get("calls")): r
+            for r in run[kind]}
+
+
 def summarize(runs: dict) -> dict:
     """Means per checkout of each shape's ms, host ms and profiler ms, the
-    ratio this / other, and the call-weighted decode and SSD totals."""
+    ratio this / other, and the call-weighted decode and SSD totals, over
+    the shapes both checkouts have a kernel for."""
     out = {"decode": [], "flash": [], "ssd": []}
     for kind in ("decode", "flash", "ssd"):
-        for i, row in enumerate(runs["this"][0][kind]):
+        by_tree = {tree: [_rows(r, kind) for r in runs[tree]]
+                   for tree in ("other", "this")}
+        for key, row in by_tree["this"][0].items():
+            if any(key not in rows for t in by_tree.values() for rows in t):
+                continue
             entry = {"shape": row["shape"]}
             if kind != "flash":
                 entry["calls"] = row["calls"]
                 entry["cluster"] = row.get("cluster")
                 entry["max_active_clusters"] = row.get("max_active_clusters")
-                entry["this_ms_by_cluster"] = [r[kind][i].get("ms_by_cluster")
-                                               for r in runs["this"]]
+                entry["this_ms_by_cluster"] = [
+                    rows[key].get("ms_by_cluster") for rows in by_tree["this"]]
                 entry["records_per_call"] = {
-                    tree: [r[kind][i]["records_per_call"] for r in runs[tree]]
-                    for tree in ("other", "this")}
+                    tree: [rows[key]["records_per_call"] for rows in t]
+                    for tree, t in by_tree.items()}
             for tree in ("other", "this"):
-                rs = [r[kind][i] for r in runs[tree]]
+                rs = [rows[key] for rows in by_tree[tree]]
                 entry[tree] = {m: [r[m] for r in rs]
                                for m in ("ms", "host_ms", "profiler_ms")}
                 entry[tree]["mean_ms"] = _mean(entry[tree]["ms"])
