@@ -401,8 +401,9 @@ TRAIN_REDUCED = {"n_repeats": 1, "vocab_size": 1024}
 # shape (the fp32 model checks run it), the CUDA-core decode and SSD
 # kernels in fp32 at their bf16 rows' shapes, the CUDA-core decode
 # again at lm-tiny's largest decode cell, and both tensor-core attention
-# kernels again at stablelm-12b's head dim 160 (32 heads on 8); each
-# row's launches are those of its route
+# kernels again at stablelm-12b's head dim 160 (32 heads on 8), flash's
+# also at llama3-8b's and minitron-8b's 128; each row's launches are
+# those of its route
 _CSRC = "src/repro_torch/kernels/csrc/"
 KERNEL_ROWS = (
     ("flash_attention", "flash_attention", "tensor_core",
@@ -412,6 +413,9 @@ KERNEL_ROWS = (
     ("flash_attention/cuda_core", "flash_attention/fp32", "cuda_core",
      _CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:89"),
     ("flash_attention/stablelm-12b", "flash_attention/stablelm-12b",
+     "tensor_core", _CSRC + "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:89"),
+    ("flash_attention/llama3-8b", "flash_attention/llama3-8b",
      "tensor_core", _CSRC + "flash_attention.cu",
      "src/repro/kernels/flash_attention.py:89"),
     ("decode_attention", "decode_attention", "tensor_core",
@@ -468,7 +472,9 @@ def main(argv=None) -> int:
                     if "registers" in ln or "spill" in ln
                     or "Function properties for" in ln]
              for name, log in build.build_log.items()}
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "flash_tc_pair_kernel": ptxas_of(build.build_log.get(
+              "flash_attention", ""), "flash_tc_pair_kernel")})
 
     kernels_rep = phase_kernels(torch)
     emit({"phase": "kernels", **kernels_rep})
@@ -484,7 +490,7 @@ def main(argv=None) -> int:
 
     launches = {n: {} for n in KERNEL_STATS}
     by_path = {n: {} for n in KERNEL_STATS}
-    calls = {"ssd_scan": {}, "decode_attention": {}}
+    calls = {"ssd_scan": {}, "decode_attention": {}, "flash_attention": {}}
     for path, needed in PATHS.items():
         _reset_counts()
         serve_rep = phase_serve(torch, path)
@@ -505,6 +511,8 @@ def main(argv=None) -> int:
     emit({"phase": "ssd_shapes", "rows": ssd_shapes})
     decode_shapes = decode_calls_by_shape(torch, calls["decode_attention"])
     emit({"phase": "decode_shapes", **decode_shapes})
+    flash_shapes = flash_calls_by_shape(torch, calls["flash_attention"])
+    emit({"phase": "flash_shapes", **flash_shapes})
     for name in MICRO_PATHS:
         micro_rep = phase_micro(torch, name)
         _tally(micro_rep["launches_by_route"], name, launches, by_path)
@@ -532,12 +540,28 @@ def main(argv=None) -> int:
         if row["name"] == "decode_attention":
             row["calls_by_shape"] = decode_shapes["rows"]
             row["calls_weighted_ms"] = decode_shapes["weighted_ms"]
+        if row["name"] == "flash_attention":
+            row["calls_by_shape"] = flash_shapes["rows"]
+            row["calls_weighted_ms"] = flash_shapes["weighted_ms"]
     emit({"kernels": rows})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def ptxas_of(log: str, kernel: str) -> list:
+    """ptxas's lines (``-v``) about each entry whose name holds
+    ``kernel``: its name, stack frame and spills, registers."""
+    lines, inside = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = kernel in ln
+        if inside and ("Compiling entry function" in ln or "spill" in ln
+                       or "registers" in ln):
+            lines.append(ln.strip())
+    return lines
 
 
 def kernel_rows(kernels_rep, launches, by_path):
@@ -836,6 +860,51 @@ def decode_calls_by_shape(torch, calls) -> dict:
             "calls": sum(x["calls"] for x in rows)}
 
 
+def flash_calls_by_shape(torch, calls) -> dict:
+    """Flash timed at each shape the serving paths called it with
+    (``calls``: the wrapper's (dtype, B, Sq, Sk, H, Hkv, D, window) ->
+    calls; every serving call is causal), on fresh inputs, on the route
+    each shape takes (forced, so the time is the kernel's alone): device
+    ms, host ms, the bound and the calls times the excess over it; then
+    the total over the calls (``weighted_ms``) and that total and the
+    excess by head dim."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for (dt, B, Sq, Sk, H, Hkv, D, window), n in sorted(calls.items()):
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, Sq, H, D), (B, Sk, Hkv, D),
+                                 (B, Sk, Hkv, D)))
+        rule = flash_mod.route(dt, D, Sq, Sk)
+        t = time_ms(torch, lambda: flash_mod.launch(
+            q, k, v, causal=True, window=window, force=rule), iters=20)
+        bound_ms, bound_by = _bound(
+            q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D),
+            4.0 * D * B * H * _visible_pairs(Sq, window, Sk), dt)
+        rows.append({"shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H,
+                               "Hkv": Hkv, "D": D, "window": window},
+                     "dtype": dt, "route": rule, "calls": n,
+                     "ms": t["ms"], "host_ms": t["host_ms"],
+                     "covered": t["covered"], "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "calls_x_excess_ms": n * (t["ms"] - bound_ms)})
+        del q, k, v
+    by_dim = {}
+    for x in rows:
+        d = by_dim.setdefault(str(x["shape"]["D"]),
+                              {"calls": 0, "weighted_ms": 0.0,
+                               "calls_x_excess_ms": 0.0})
+        d["calls"] += x["calls"]
+        d["weighted_ms"] += x["calls"] * x["ms"]
+        d["calls_x_excess_ms"] += x["calls_x_excess_ms"]
+    return {"rows": rows,
+            "weighted_ms": sum(x["calls"] * x["ms"] for x in rows),
+            "calls_x_excess_ms": sum(x["calls_x_excess_ms"] for x in rows),
+            "calls": sum(x["calls"] for x in rows), "by_head_dim": by_dim}
+
+
 def _bound(bytes_moved: float, flops, dtype_name: str):
     """(least ms, what bounds it): the bytes over the HBM rate, or the
     operations over the peak of their type.  ``flops`` is a count at
@@ -849,9 +918,12 @@ def _bound(bytes_moved: float, flops, dtype_name: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _visible_pairs(S: int, window: int) -> int:
-    """Causal (optionally windowed) query-key pairs of one head."""
-    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+def _visible_pairs(S: int, window: int, sk: int = 0) -> int:
+    """Causal (optionally windowed) query-key pairs of one head: S query
+    rows against ``sk`` keys (S by default), positions from 0."""
+    sk = sk or S
+    return sum(max(0, min(i + 1, sk) - (max(0, i - window + 1) if window
+                                        else 0)) for i in range(S))
 
 
 def _config(name: str):
@@ -1016,6 +1088,16 @@ def phase_kernels(torch):
             for D in (16, 32, 128, 160):
                 flash.append((dt, 2, 100, 14, 2, D, 48, 32))
                 flash.append((dt, 2, 100, 16, 1, D, 0, 32))
+            # head dim 160's 128-row blocks (a 64-row tile a warpgroup):
+            # one row into a block (129), one row past two (257), inside a
+            # group's tile (1000), causal and windowed, at B = 1 and 3;
+            # and stablelm-12b's model check prompt (1024 positions)
+            for B in (1, 3):
+                for S in (129, 257, 1000):
+                    for window in (0, 100):
+                        flash.append((dt, B, S, *DENSE_HEADS, 160, window,
+                                      512))
+            flash.append((dt, 1, 1024, *DENSE_HEADS, 160, 0, 512))
     # attn-tiny (the micro path): fp32, 2 heads of 16, its rungs' S = 16,
     # 8 and 4 (on the card unpadded: the short route), at B = 1, 16, 256
     heads, hd = ATTN_TINY_HD
@@ -1060,7 +1142,8 @@ def phase_kernels(torch):
                    [flash_mod.launch(q, k, v, causal=True, window=window)],
                    [forced[rule]])
         if D == 256 or tiny or (D == 64 and (H, Hkv) in D64_SERVING) or (
-                D == 160 and S == 512 and not window):
+                D == 160 and S == 512 and not window) or (
+                D == 128 and S == 512 and dt == "bfloat16"):
             qt = q.transpose(1, 2)
             kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
             vt = torch.repeat_interleave(v, H // Hkv, 2).transpose(1, 2)
@@ -1484,6 +1567,19 @@ def phase_kernels(torch):
         for D in (64, 128, 160, 256) for S in (512, 1024, 4096)
         for c in decode_mod.CLUSTERS}
 
+    # head dim 160's pair kernel holds O (80 registers a thread), S and P
+    # at once: ptxas must fit it without a spill (where this process
+    # built the library, so that ptxas's lines are at hand)
+    if "flash_attention" in build.build_log:
+        pair = ptxas_of(build.build_log["flash_attention"],
+                        "flash_tc_pair_kernel")
+        cases.append({"kernel": "flash_attention", "dtype": "bfloat16",
+                      "check": "flash_tc_pair_kernel compiled, no spill",
+                      "ptxas": pair,
+                      "ok": bool(pair) and all(
+                          " 0 bytes spill stores, 0 bytes spill loads" in ln
+                          for ln in pair if "spill" in ln)})
+
     failed = [c for c in cases if not c["ok"]]
     # headline: the serving phase's largest cells in the dtype its calls
     # pass — a 512-token bf16 prefill at b=4, a bf16 decode step at b=4
@@ -1507,6 +1603,14 @@ def phase_kernels(torch):
             t for t in timings["flash_attention"]
             if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
             and t["shape"]["S"] == 512 and t["shape"]["D"] == 160
+            and t["shape"]["window"] == 0),
+        # llama3-8b's and minitron-8b's prefill at head dim 128 (32 heads
+        # on 8)
+        "flash_attention/llama3-8b": next(
+            t for t in timings["flash_attention"]
+            if t["dtype"] == "bfloat16" and t["shape"]["B"] == 4
+            and t["shape"]["S"] == 512 and t["shape"]["D"] == 128
+            and (t["shape"]["H"], t["shape"]["Hkv"]) == DENSE_HEADS
             and t["shape"]["window"] == 0),
         # attn-tiny's largest serving cell: the short route's path
         "flash_attention/attn-tiny": next(
@@ -2545,13 +2649,25 @@ def phase_micro(torch, name: str):
         "tolerance": dict(zip(("atol", "rtol"), TOL["float32"]))}}
     if not ok:
         # what a failure needs to be told apart: the worst element, and
-        # whether the same step on the same card tensors repeats it
+        # whether the same step on the same card tensors repeats it; for
+        # the MLPs which side drifted (each against the step in fp64) and
+        # the fp32 matmul settings in force
         i = int((got - want).abs().argmax())
         rep["step_check"]["worst"] = {
             "index": i, "card": float(got.flatten()[i]),
             "cpu": float(want.flatten()[i]),
             "again_max_abs_err": _compare(torch, card_step(), want,
                                           "float32")[0]}
+        if name != "attn-tiny":
+            exact = micro.mlp_step(x.double(), [(w.double(), c.double())
+                                                for w, c in params])
+            rep["step_check"]["vs_fp64"] = {
+                "card": float((got.double() - exact).abs().max()),
+                "cpu": float((want.double() - exact).abs().max())}
+        rep["step_check"]["matmul"] = {
+            "cuda_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision":
+                torch.get_float32_matmul_precision()}
         emit({"phase": "micro", **rep})
         raise AssertionError(f"{name}: the card's step differs from the "
                              f"CPU's: {err}")

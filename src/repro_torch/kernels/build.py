@@ -63,7 +63,8 @@ class KernelStats:
     ``"chunked"`` for the RG-LRU scan, which has one); ``launches`` is
     their sum.
     ``calls_by_shape`` counts the launching calls by the shape key a
-    wrapper passes (the SSD scan's and decode's dtype and dimensions), so
+    wrapper passes (flash's, decode's and the SSD scan's dtype and
+    dimensions), so
     a caller can weigh per-shape kernel times by the mix a path really
     ran.
     ``cpu_calls`` counts calls that took the plain PyTorch version

@@ -9,14 +9,15 @@
 //
 // Design, the two tiled routes.  One block per (Q tile, head, batch):
 // 64 rows on the tensor cores, 32 on the CUDA cores (two blocks a tile
-// there).  The TPU kernel carries m/l/acc in VMEM scratch across a
-// sequential KV grid axis; here a loop inside the block walks the KV
-// tiles instead, and it visits only the tiles that the causal and window
-// masks leave visible, so masked work is skipped as on the TPU.  Masking
-// uses the finite constant -0.7 * FLT_MAX of the TPU kernel: a row whose
-// first visible tile is fully masked for it accumulates exp(0) = 1 terms
-// that the first real score wipes out with alpha = exp(NEG_INF - m) = 0,
-// where -inf would give NaN.
+// there); at D = 160 on the tensor cores one persistent block a SM walks
+// tiles of 128 rows.  The TPU kernel carries m/l/acc in VMEM scratch
+// across a sequential KV grid axis; here a loop inside the block walks
+// the KV tiles instead, and it visits only the tiles that the causal and
+// window masks leave visible, so masked work is skipped as on the TPU.
+// Masking uses the finite constant -0.7 * FLT_MAX of the TPU kernel: a
+// row whose first visible tile is fully masked for it accumulates
+// exp(0) = 1 terms that the first real score wipes out with
+// alpha = exp(NEG_INF - m) = 0, where -inf would give NaN.
 //
 // What bounds it on an H100.  At the serving shapes (S = 512..1024,
 // D = 256, 4 query heads on 1 KV head) the card's own bound is a few
@@ -75,26 +76,25 @@
 //     window; bf16 (forced) is staged as bf16 and widened on each load.
 // Attributes are set once per device.
 
-// Tensor-core route (bf16, D = 16, 32, 64, 128, 160 or 256):
-// `flash_tc_kernel`, built from Hopper's own parts (hopper.cuh) so the
-// chain runs on the tensor cores with nothing else in its way.  A block
-// is two warpgroups that take alternate KV tiles against the same 64-row
-// Q tile (wgmma's M):
+// Tensor-core route (bf16, D = 16, 32, 64, 128, 160 or 256): built from
+// Hopper's own parts (hopper.cuh) so the chain runs on the tensor cores
+// with nothing else in its way.  Two kernels, each of two consumer
+// warpgroups.
+// `flash_tc_kernel` (every D but 160): the groups take alternate KV
+// tiles against the same 64-row Q tile (wgmma's M):
 //   * loads: one thread loads the Q tile once, and one thread of each
 //     warpgroup keeps that group's ring of three K/V stages full by TMA
-//     (4-d tensor maps, one box of 64 KV rows, 32 at D = 160 and 256,
-//     per 64 columns, 128/64/32-byte swizzled as wgmma reads them; at
-//     D = 160, whose 64-column blocks would leave 32 over, five blocks
-//     of 32 columns, 64-byte swizzled; a full mbarrier a stage),
-//     refilling a stage once every warp of the group is done with it, so
-//     no copy costs the group more than a few instructions.  There is
-//     no producer warpgroup: ptxas gives every
+//     (4-d tensor maps, one box of 64 KV rows, 32 at D = 256, per 64
+//     columns, 128/64/32-byte swizzled as wgmma reads them; a full
+//     mbarrier a stage), refilling a stage once every warp of the group
+//     is done with it, so no copy costs the group more than a few
+//     instructions.  There is no producer warpgroup: ptxas gives every
 //     thread of a block the launch bound's share of registers (168 with a
 //     third warpgroup) whatever setmaxnreg grants later, and at D = 256
 //     it then spilled and serialised the products; with two warpgroups a
 //     thread may hold up to 255, and ptxas uses 182 at D = 256 (O alone
-//     is 128 a thread), 130 at D = 160, 138 at D = 128 and 82-109 up to
-//     D = 64, with no spill at any head dim;
+//     is 128 a thread), 138 at D = 128 and 82-109 up to D = 64, with no
+//     spill at any head dim;
 //   * products: S = Q K^T by wgmma with both operands K-major in shared
 //     memory, O += P V by wgmma with P from registers (the accumulator
 //     rounded to bf16 in pairs) and V MN-major.  Step n issues S_n and
@@ -104,16 +104,61 @@
 //     the tensor cores during this one's softmax.  At the end group 1
 //     hands its (m, l, O) to group 0 through the idle rings and group 0
 //     merges the two online softmaxes and writes O.
-// The numbers are those of the mma.sync kernel this one replaced: the
-// log2-domain softmax on the fp32 accumulator (row max and sum across
+// `flash_tc_pair_kernel` (D = 160, stablelm-12b's prefill: 32 heads on 8).
+// Fitted to `flash_tc_kernel`, 160 columns meant five 32-column blocks,
+// two rings of 32-row KV tiles (141 KB, one block a SM), twenty small
+// wgmma a tile and the online softmax's rescale of O every 32 keys; it ran
+// at 4.7x its bound and 1.5x SDPA.  So a query tile is a pair of 64-row
+// tiles, one a warpgroup, and both groups walk the same KV tiles:
+//   * one ring of three stages of 64 KV rows (40 KB of K and V a stage),
+//     each tile read from shared memory by both groups' products; each
+//     group computes only on the run of the tiles its own rows see (under
+//     causal masking group 0 skips the last, with a window group 1 skips
+//     the first), still releasing the others.  No state is merged: each
+//     group writes its 64 rows;
+//   * S = Q K^T is ten wgmma m64n64k16 a tile (32-column boxes, 64-byte
+//     swizzled); P V is one wgmma m64n160k16 a 16-key step over V's five
+//     boxes (MN-major, the descriptor's LBO one box), four a tile in place
+//     of twenty m64n32k16; O is rescaled every 64 keys;
+//   * a producer warp issues every TMA copy (Q, then the ring's tiles,
+//     each once all eight consumer warps have arrived on its stage's empty
+//     barrier): a consumer thread issuing a stage's ten copies held up its
+//     warpgroup's next products.  Beside two warpgroups it caps ptxas at
+//     168 registers a thread; the kernel needs 168 without a spill;
+//   * the groups take turns at the tensor cores (two named barriers): a
+//     group issues S_r and P_{r-1} V_{r-1}, passes the turn, and runs the
+//     softmax of S_r while the other group's products run; both groups
+//     wait on the same tiles, and without turns they ran their softmaxes
+//     at once with the tensor cores idle.  The turns also keep the groups
+//     within a round of each other, which the empty barriers rely on: a
+//     phase counts eight arrivals, and a group three tiles ahead (it
+//     releases the tiles outside its run unread) would complete a stage's
+//     phase with its own arrivals while the other group still reads it;
+//   * the softmax is the chain that sets the pace (about half of a
+//     steady round's cycles in tools/flash_pair_probe.py's trace):
+//     ex2.approx in place of exp2f (5-11% of the kernel's time), the mask
+//     as a branch of its own, and off the edge tiles the scale folded
+//     into the exponent;
+//   * O leaves through shared memory: each group writes its bf16 O into
+//     its Q tile in the boxes' swizzle and one thread stores the boxes by
+//     TMA, where scattered 4-byte stores from registers held the block's
+//     end;
+//   * persistent: one block a SM (Q double-buffered, 205 KB) walks query
+//     tiles heaviest first in a zig-zag (block i takes tiles i,
+//     2G - 1 - i, 2G + i, ...), so the next tile's Q and KV tiles land
+//     while this one computes, group 0 starts it while group 1 stores, and
+//     a block that took a heavy tile takes a light one next; the ring and
+//     the turns run on across tiles.
+// Both kernels keep the numbers of the mma.sync kernel they replaced:
+// the log2-domain softmax on the fp32 accumulator (row max and sum across
 // the 4 lanes of a row by two shuffles), P rounded to bf16, the mask
-// applied only on tiles across an edge of a warp's 16 rows.  Rows past
-// Sq or Sk arrive as zeros (TMA's out-of-bounds fill) and are masked by
+// applied only on tiles across an edge of a warp's 16 rows.  Rows past Sq
+// or Sk arrive as zeros (TMA's out-of-bounds fill) and are masked by
 // position.  Under causal masking the grid walks query tiles heaviest
-// first.  Shared memory: the Q tile and the two rings (225 KB at
-// D = 256, 141 KB at D = 160); up to D = 64 two blocks share an SM.  The
+// first.  Shared memory of `flash_tc_kernel`: the Q tile and the two
+// rings (225 KB at D = 256); up to D = 64 two blocks share an SM.  The
 // tensor maps are encoded on the host for each call (they hold the
-// pointers), the kernel's attributes set once per device.
+// pointers), the kernels' attributes set once per device.
 //
 // Short route (fp32, Sq and Sk <= 16, D = 8, 16 or 32): `flash_short_kernel`,
 // attn-tiny's path (2 heads of 16 over 16, 8 or 4 positions, B up to
@@ -600,14 +645,14 @@ constexpr int kTcStages = 3;             // K/V stages of each warpgroup
 constexpr int kTensorMapError = -2;      // cuTensorMapEncodeTiled refused
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D_>
 struct TcTile {
+  static constexpr int D = D_;
   // KV rows a tile: 64, and 32 above D = 128 (six stages of 64 rows
-  // would not fit the SM's shared memory at D = 160 or 256)
+  // would not fit the SM's shared memory at D = 256)
   static constexpr int BKV = D > 128 ? 32 : 64;
-  // columns of a block: 64 where they divide D, else 32 (D = 160: five
-  // blocks, 64-byte swizzled), else D (16)
-  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : D;
+  // columns of a block: 64 where they divide D, else D (16, 32)
+  static constexpr int W = D % 64 == 0 ? 64 : D;
   static constexpr int NB = D / W;                // column blocks a row
   static_assert(NB * W == D && D % 16 == 0, "every column in a block");
   static constexpr int SW = 2 * W;                // swizzle bytes
@@ -692,13 +737,12 @@ __device__ __forceinline__ void tc_pack_p(const float (&s)[BKV / 2],
 }
 
 // S (64 x BKV) = Q K^T for one KV tile, both operands K-major in shared
-// memory, D / 16 steps.
-template <int D>
-__device__ __forceinline__ void tc_scores(float (&s)[TcTile<D>::BKV / 2],
+// memory (Q as 64-row column blocks, K as BKV-row ones), D / 16 steps.
+template <typename T>
+__device__ __forceinline__ void tc_scores(float (&s)[T::BKV / 2],
                                           uint32_t q_addr, uint32_t k_addr) {
-  using T = TcTile<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < T::D / 16; ++kk) {
     const uint32_t blk = kk * 16 / T::W, off = (kk * 16 % T::W) * 2;
     hopper::wgmma_ss<T::BKV, 0, 0>(
         s, hopper::desc(q_addr + blk * kTcBQ * T::SW + off, 16, 8 * T::SW, T::SW),
@@ -828,7 +872,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::mbar_wait(&full[stage(0)], 0);
     hopper::fence_regs(s);
     hopper::wgmma_fence();
-    tc_scores<D>(s, q_addr, k_addr(0));
+    tc_scores<T>(s, q_addr, k_addr(0));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(s);
@@ -844,7 +888,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) hopper::fence_regs(pa[kk]);
     hopper::wgmma_fence();
-    tc_scores<D>(s, q_addr, k_addr(j));
+    tc_scores<T>(s, q_addr, k_addr(j));
     hopper::wgmma_commit();
     tc_pv<D>(acc, pa, k_addr(j - 1) + T::KV_BYTES);
     hopper::wgmma_commit();
@@ -934,6 +978,439 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---------------------------------------------------------------------
+// tensor-core route at D = 160: a pair of 64-row query tiles a block,
+// one K/V ring for both warpgroups, fed by a producer warp
+// ---------------------------------------------------------------------
+constexpr int kPairBQ = 2 * kTcBQ;       // rows of a query tile: 64 a group
+// two consumer warpgroups and one producer warp; ptxas sizes registers
+// for the launch bound's threads (up to 168 a thread here)
+constexpr int kPairThreads = kTcThreads + 32;
+constexpr int kPairConsumerWarps = kTcThreads / 32;
+
+template <int D_>
+struct TcPair {
+  static constexpr int D = D_;
+  static constexpr int BKV = 64;                  // KV rows a tile
+  // columns a box: 32 (64-byte swizzle), five boxes at D = 160; P V reads
+  // them all in one wgmma, LBO a box apart
+  static constexpr int W = 32;
+  static constexpr int NB = D / W;
+  static_assert(NB * W == D && D <= 256, "every column in a box; N <= 256");
+  static constexpr int SW = 2 * W;                // swizzle bytes
+  static_assert(SW == 64, "the epilogue writes O in the 64-byte swizzle");
+  // K/V stages of the ring (two measured 30% slower at B = 4, S = 512 in
+  // tools/flash_pair_probe.py; four do not fit beside the two Q buffers)
+  static constexpr int STAGES = 3;
+  static constexpr int QG_BYTES = kTcBQ * D * 2;  // one group's Q (then O)
+  static constexpr int Q_BYTES = 2 * QG_BYTES;    // a query tile's Q
+  static constexpr int KV_BYTES = BKV * D * 2;    // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // alignment slack, two query tiles' Q, the ring, then the barriers: each
+  // Q buffer's full and empty, each stage's full and empty
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES + 8 * (4 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "one block's shared memory on an H100");
+};
+
+// The KV tiles of BKV rows that query rows [r_lo, r_hi) see (the TPU
+// kernel's pl.when test), as [x, y); empty where no row is below Sq.
+__device__ __forceinline__ int2 tc_visible(int r_lo, int r_hi, int Sq,
+                                           int Sk, int bkv, int causal,
+                                           int window) {
+  r_hi = min(r_hi, Sq);
+  if (r_lo >= r_hi) return make_int2(0, 0);
+  const int n_tiles = (Sk + bkv - 1) / bkv;
+  int hi = n_tiles;
+  if (causal) hi = min(n_tiles, (r_hi - 1) / bkv + 1);
+  int lo = 0;
+  if (window > 0 && r_lo - window + 1 > 0) lo = (r_lo - window + 1) / bkv;
+  return make_int2(lo, max(lo, hi));
+}
+
+// O (64 x D) += P V for one KV tile: P from registers (BKV / 16 steps of
+// 16 keys), V MN-major in shared memory as NB column boxes, all D
+// columns in one wgmma a step.
+template <typename T>
+__device__ __forceinline__ void tc_pv_wide(float (&acc)[T::D / 2],
+                                           const uint32_t (&pa)[T::BKV / 16][4],
+                                           uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < T::BKV / 16; ++kk)
+    hopper::wgmma_rs<T::D, 1>(
+        acc, pa[kk],
+        hopper::desc(v_addr + kk * 16 * T::SW, T::BKV * T::SW, 8 * T::SW,
+                     T::SW),
+        1);
+}
+
+// 2^x by the hardware's ex2.approx.ftz (about 2 ulp; results below 2^-126
+// flush to 0, far below what a bf16 P keeps).  With exp2f the kernel
+// takes 5-11% longer (tools/flash_pair_probe.py, H100).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tc_softmax's online softmax for the pair kernel, in fewer instructions:
+// the mask is a branch of its own (as a predicate inside the unrolled
+// loop every tile paid for its instructions), and off the edge
+// tiles, where every score is finite, the scale folds into the exponent,
+// 2^(s * scale - m) in one FFMA, with m the scaled row max.  An edge tile
+// scales, masks to -0.7 FLT_MAX and subtracts as tc_softmax does (a
+// folded exponent of a masked score would be off by the product's
+// rounding, ~1e30).
+template <int BKV>
+__device__ __forceinline__ void pair_softmax(float (&s)[BKV / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k_lo,
+                                             int r0, int row_a, int t, int Sk,
+                                             int causal, int window,
+                                             float scale_log2) {
+  const bool edge = (causal && k_lo + BKV - 1 > r0) || k_lo + BKV > Sk ||
+                    (window > 0 && k_lo + window <= r0 + 15);
+  float mx[2] = {kNegInf, kNegInf};
+  float rs[2] = {0.f, 0.f};
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = row_a + (e >= 2 ? 8 : 0);
+        const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
+        bool keep = kpos < Sk;
+        if (causal) keep = keep && kpos <= qpos;
+        if (window > 0) keep = keep && kpos > qpos - window;
+        const float x = keep ? s[4 * j + e] * scale_log2 : kNegInf;
+        s[4 * j + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = ex2(s[4 * j + e] - m[e / 2]);
+        rs[e / 2] += s[4 * j + e];
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
+    float nm[2];                         // -m, scaled
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      nm[r] = -m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, nm[e / 2]));
+        rs[e / 2] += s[4 * j + e];
+      }
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+}
+
+// The two groups' turns at the tensor cores (barriers 4 and 5, of both
+// groups' 256 threads): a group waits for its turn before it issues its
+// products and passes the turn on once they are issued, so one group's
+// products run during the other's softmax.
+__device__ __forceinline__ void turn_wait(int grp) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(4 + grp) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int grp) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(5 - grp) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_tc_pair_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_o, int B, int Sq,
+                     int Sk, int H, int Hkv, int causal, int window,
+                     float scale_log2) {
+  using T = TcPair<D>;
+  constexpr int BKV = T::BKV, ST = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hopper::align1024(smem_raw);
+  // two Q buffers, [buffer][group][box][64 rows][W]: a query tile's Q,
+  // then its O for the store, while the next tile's Q lands in the other
+  unsigned char* qs = base;
+  unsigned char* ring = base + 2 * T::Q_BYTES;  // [stage][K, V][box][BKV][W]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + ST * T::STAGE_BYTES);
+  uint64_t* q_empty = q_full + 2;            // a buffer's: both groups done
+  uint64_t* full = q_empty + 2;              // a stage's: its tile landed
+  uint64_t* empty = full + ST;               // a stage's: every warp is done
+
+  // items, heaviest first under causal masking (the last query tile of
+  // every (b, h) first); the block's n-th is item n G + blockIdx.x for
+  // even n and n G + G - 1 - blockIdx.x for odd n (G blocks), so a block
+  // that took one of the heaviest takes one of the lightest next
+  const int n_qt = (Sq + kPairBQ - 1) / kPairBQ;
+  const int n_items = n_qt * H * B;
+  const int G = gridDim.x;
+  auto nth = [&](int n) {
+    return n * G + (n % 2 ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+  struct Item {
+    int h, b, q_lo, lo, n_vis;
+  };
+  auto item_of = [&](int i) {
+    Item it;
+    const int z = i / (H * B), hb = i % (H * B);
+    it.b = hb / H;
+    it.h = hb % H;
+    it.q_lo = (causal ? n_qt - 1 - z : z) * kPairBQ;
+    const int2 vis = tc_visible(it.q_lo, it.q_lo + kPairBQ, Sq, Sk, BKV,
+                                causal, window);
+    it.lo = vis.x;
+    it.n_vis = vis.y - vis.x;
+    return it;
+  };
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      hopper::mbar_init(&q_full[qb], 1);
+      hopper::mbar_init(&q_empty[qb], 2);
+    }
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kPairConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kTcThreads) {
+    // the producer warp: one thread issues every copy, for each query tile
+    // its Q (once both groups have stored the O of the tile two before from
+    // that buffer) and then its KV tiles through the ring, each once every
+    // consumer warp has released the tile ST before it
+    if (tid == kTcThreads) {
+      int jg = 0;                            // tiles through the ring so far
+      for (int n = 0, i = nth(0); i < n_items; i = nth(++n)) {
+        const Item it = item_of(i);
+        const int hk = it.h / (H / Hkv), qb = n % 2;
+        if (n >= 2) hopper::mbar_wait(&q_empty[qb], (n / 2 - 1) & 1);
+        const bool two = it.q_lo + kTcBQ < Sq;  // group 1 has a row below Sq
+        unsigned char* qd = qs + qb * T::Q_BYTES;
+        hopper::mbar_expect_tx(&q_full[qb], (two ? 2 : 1) * T::QG_BYTES);
+        for (int gq = 0; gq < (two ? 2 : 1); ++gq)
+          for (int cb = 0; cb < T::NB; ++cb)
+            hopper::tma_load_4d(qd + (gq * T::NB + cb) * kTcBQ * T::SW, &tm_q,
+                                &q_full[qb], cb * T::W, it.h,
+                                it.q_lo + kTcBQ * gq, it.b);
+        for (int j = 0; j < it.n_vis; ++j, ++jg) {
+          const int st = jg % ST;
+          if (jg >= ST) hopper::mbar_wait(&empty[st], (jg / ST - 1) & 1);
+          unsigned char* kst = ring + st * T::STAGE_BYTES;
+          unsigned char* vst = kst + T::KV_BYTES;
+          hopper::mbar_expect_tx(&full[st], T::STAGE_BYTES);
+          for (int cb = 0; cb < T::NB; ++cb) {
+            hopper::tma_load_4d(kst + cb * BKV * T::SW, &tm_k, &full[st],
+                                cb * T::W, hk, (it.lo + j) * BKV, it.b);
+            hopper::tma_load_4d(vst + cb * BKV * T::SW, &tm_v, &full[st],
+                                cb * T::W, hk, (it.lo + j) * BKV, it.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the group as a value the compiler knows is the same across a warp
+  const int grp = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int wt = tid % 128, w = wt / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const uint32_t ring_addr = hopper::smem_addr(ring);
+  if (grp == 1) turn_pass(grp);          // group 0's first turn
+  int jg0 = 0;                           // ring tiles of earlier query tiles
+  for (int n = 0, i = nth(0); i < n_items; i = nth(++n)) {
+    const Item it = item_of(i);
+    const int lo = it.lo, n_vis = it.n_vis, qb = n % 2;
+    const int g_lo = it.q_lo + kTcBQ * grp;  // this group's first row
+    const int r0 = g_lo + 16 * w;            // this warp's first row
+    const int row_a = r0 + g;                // this lane's rows: a, a + 8
+    // this group's run: the query tile's ring tiles a, a + 1, ..., e - 1
+    const int2 own = tc_visible(g_lo, g_lo + kTcBQ, Sq, Sk, BKV, causal,
+                                window);
+    const int a = own.x - lo, e = own.y - lo;
+    unsigned char* qg = qs + qb * T::Q_BYTES + grp * T::QG_BYTES;
+    const uint32_t q_addr = hopper::smem_addr(qg);
+    // tile r of this query tile is the ring's tile jg0 + r: stage
+    // (st0 + r) % ST of phase ph0 + (st0 + r) / ST
+    const int st0 = jg0 % ST, ph0 = jg0 / ST;
+    auto k_addr = [&](int r) {
+      return ring_addr + ((st0 + r) % ST) * T::STAGE_BYTES;
+    };
+    auto wait_tile = [&](int r) {
+      hopper::mbar_wait(&full[(st0 + r) % ST], (ph0 + (st0 + r) / ST) & 1);
+    };
+    // this warp is done with tile r (or never reads it)
+    auto release = [&](int r) {
+      if (lane == 0) hopper::mbar_arrive(&empty[(st0 + r) % ST]);
+    };
+    // the groups take turns in rounds 0..n_vis (group 0 first): in round r
+    // a group issues S_r if tile r is in its run and P_{r-1} V_{r-1} if
+    // tile r - 1 is, then releases tile r - 1; group 1's pass after its
+    // last round is group 0's first turn of the next query tile (none
+    // after the block's last), so every wait has its pass and group 0
+    // starts the next tile while group 1 stores this one
+    const bool more = nth(n + 1) < n_items;
+    auto pass = [&](int r) {
+      if (grp == 0 || r < n_vis || more) turn_pass(grp);
+    };
+    auto idle = [&](int r) {                 // a round with no product
+      turn_wait(grp);
+      pass(r);
+      if (r > 0) release(r - 1);
+    };
+    float acc[D / 2];
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};             // this lane's share of the row sum
+    float s[BKV / 2], alpha[2];
+    uint32_t pa[BKV / 16][4];            // P as the A fragments of P V
+
+    if (e <= a) {
+      for (int r = 0; r <= n_vis; ++r) idle(r);
+    } else {
+      for (int r = 0; r < a; ++r) idle(r);
+      // round a: S_a alone
+      hopper::mbar_wait(&q_full[qb], (n / 2) & 1);
+      wait_tile(a);
+      turn_wait(grp);
+      hopper::fence_regs(s);
+      hopper::wgmma_fence();
+      tc_scores<T>(s, q_addr, k_addr(a));
+      hopper::wgmma_commit();
+      pass(a);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      pair_softmax<BKV>(s, m, l, alpha, (lo + a) * BKV, r0, row_a, t, Sk,
+                        causal, window, scale_log2);
+      if (a > 0) release(a - 1);
+      tc_pack_p<BKV>(s, pa);
+      // rounds a + 1 .. e - 1: S_r with P_{r-1} V_{r-1}; the softmax of
+      // S_r runs while this group's P V and the other group's products
+      // run, and O is rescaled once no product of this group is in flight
+      for (int r = a + 1; r < e; ++r) {
+        wait_tile(r);
+        turn_wait(grp);
+        hopper::fence_regs(s);
+        hopper::fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) hopper::fence_regs(pa[kk]);
+        hopper::wgmma_fence();
+        tc_scores<T>(s, q_addr, k_addr(r));
+        hopper::wgmma_commit();
+        tc_pv_wide<T>(acc, pa, k_addr(r - 1) + T::KV_BYTES);
+        hopper::wgmma_commit();
+        pass(r);
+        hopper::wgmma_wait<1>();         // S_r is done
+        hopper::fence_regs(s);
+        pair_softmax<BKV>(s, m, l, alpha, (lo + r) * BKV, r0, row_a, t, Sk,
+                          causal, window, scale_log2);
+        hopper::wgmma_wait<0>();         // P V of tile r - 1 too
+        hopper::fence_regs(acc);
+        release(r - 1);
+        tc_pack_p<BKV>(s, pa);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          acc[4 * c] *= alpha[0];
+          acc[4 * c + 1] *= alpha[0];
+          acc[4 * c + 2] *= alpha[1];
+          acc[4 * c + 3] *= alpha[1];
+        }
+      }
+      // round e: P_{e-1} V_{e-1} alone
+      turn_wait(grp);
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) hopper::fence_regs(pa[kk]);
+      hopper::wgmma_fence();
+      tc_pv_wide<T>(acc, pa, k_addr(e - 1) + T::KV_BYTES);
+      hopper::wgmma_commit();
+      pass(e);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(e - 1);
+      for (int r = e + 1; r <= n_vis; ++r) idle(r);
+    }
+    jg0 += n_vis;
+
+    // O / l in bf16 into this group's Q tile (its products are done), in
+    // the 64-byte swizzle of the boxes; then one thread stores each box by
+    // TMA (rows past Sq are not written) and, once the store has read the
+    // buffer, hands it back to the producer.  No state to merge.
+    if (g_lo < Sq) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
+                            1.f / fmaxf(l[1], 1e-30f)};
+      const int ra = 16 * w + g;             // row a within the tile
+      const int sw = (ra >> 1) & 3;          // its chunks' swizzle, a + 8's
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        unsigned char* p = qg + (c / 4) * kTcBQ * T::SW + ra * T::SW +
+                           (((c % 4) ^ sw) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(p) =
+            mma::pack_bf16(acc[4 * c] * inv[0], acc[4 * c + 1] * inv[0]);
+        *reinterpret_cast<uint32_t*>(p + 8 * T::SW) =
+            mma::pack_bf16(acc[4 * c + 2] * inv[1], acc[4 * c + 3] * inv[1]);
+      }
+      hopper::fence_proxy_async();
+      group_sync(grp);
+      if (wt == 0) {
+        for (int cb = 0; cb < T::NB; ++cb)
+          hopper::tma_store_4d(&tm_o, qg + cb * kTcBQ * T::SW, cb * T::W, it.h,
+                               g_lo, it.b);
+        hopper::bulk_commit();
+        hopper::bulk_wait_read();
+      }
+    }
+    if (wt == 0) hopper::mbar_arrive(&q_empty[qb]);
+  }
+}
+
+// SMs of the current device, asked once per device.
+int sm_count() {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && counts[dev].load(std::memory_order_acquire) > 0)
+    return counts[dev].load(std::memory_order_acquire);
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) counts[dev].store(n, std::memory_order_release);
+  return n;
+}
+
 using EncodeTiled = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -961,11 +1438,11 @@ EncodeTiled encode_tiled() {
 }
 
 // A (B, S, heads, D) bf16 tensor as a 4-d tensor map whose box is `rows`
-// positions of one head, W columns (one block of TcTile<D>) at a time.
-template <int D>
+// positions of one head, W columns (one column block of tile T) at a time.
+template <typename T>
 bool tile_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
               int rows) {
-  using T = TcTile<D>;
+  constexpr int D = T::D;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -1009,14 +1486,55 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   const cudaError_t e = tc_attributes<D>();
   if (e != cudaSuccess) return (int)e;
   CUtensorMap mq, mk, mv;
-  if (!tile_map<D>(&mq, q, B, Sq, H, kTcBQ) ||
-      !tile_map<D>(&mk, k, B, Sk, Hkv, TcTile<D>::BKV) ||
-      !tile_map<D>(&mv, v, B, Sk, Hkv, TcTile<D>::BKV))
+  if (!tile_map<TcTile<D>>(&mq, q, B, Sq, H, kTcBQ) ||
+      !tile_map<TcTile<D>>(&mk, k, B, Sk, Hkv, TcTile<D>::BKV) ||
+      !tile_map<TcTile<D>>(&mv, v, B, Sk, Hkv, TcTile<D>::BKV))
     return kTensorMapError;
   const dim3 grid(H, B, (Sq + kTcBQ - 1) / kTcBQ);
   flash_tc_kernel<D><<<grid, kTcThreads, TcTile<D>::SMEM, stream>>>(
       mq, mk, mv, static_cast<bf16*>(o), Sq, Sk, H, Hkv, causal, window,
       scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// The pair kernel's shared-memory limit, set once per device.
+template <int D>
+cudaError_t pair_attributes() {
+  static std::atomic<unsigned long long> done{0};   // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(flash_tc_pair_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)TcPair<D>::SMEM);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+template <int D>
+int launch_tc_pair(const void* q, const void* k, const void* v, void* o,
+                   int B, int Sq, int Sk, int H, int Hkv, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  using T = TcPair<D>;
+  const cudaError_t e = pair_attributes<D>();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv, mo;
+  if (!tile_map<T>(&mq, q, B, Sq, H, kTcBQ) ||
+      !tile_map<T>(&mk, k, B, Sk, Hkv, T::BKV) ||
+      !tile_map<T>(&mv, v, B, Sk, Hkv, T::BKV) ||
+      !tile_map<T>(&mo, o, B, Sq, H, kTcBQ))
+    return kTensorMapError;
+  // one block a SM (the block's shared memory allows no second), each
+  // walking query tiles blockIdx.x, + gridDim.x, ...
+  const int items = ((Sq + kPairBQ - 1) / kPairBQ) * H * B;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int grid = items < sms ? items : sms;
+  if (grid == 0) return 0;
+  flash_tc_pair_kernel<D><<<grid, kPairThreads, T::SMEM, stream>>>(
+      mq, mk, mv, mo, B, Sq, Sk, H, Hkv, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1028,7 +1546,7 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v, void* o,
     case 32: return launch_tc<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 64: return launch_tc<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 128: return launch_tc<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
-    case 160: return launch_tc<160>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+    case 160: return launch_tc_pair<160>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 256: return launch_tc<256>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     default: return -1;
   }

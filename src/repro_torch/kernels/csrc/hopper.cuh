@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels: warpgroup
 // products (wgmma) and the shared-memory descriptors they read,
 // the swizzled tile layout that TMA writes and wgmma reads, mbarriers, TMA
-// tile loads (flash), and thread-block clusters: their barrier and
+// tile loads and stores (flash), and thread-block clusters: their barrier and
 // stores to a peer block's shared memory (decode, the SSD's bf16 route,
 // and flash's fp32 route).
 //
@@ -30,10 +30,11 @@
 // of the row (the hardware applies the swizzle to the address it forms);
 // 8-row groups are 16W bytes apart (SBO).  MN-major operand (its rows run
 // along K, M or N along the row; one block of W columns per instruction):
-// k-step kk starts 16 rows = 32W bytes further, SBO again 16W.  The
-// leading offset (LBO) is read only for K extents wider than a swizzle
-// row or several MN blocks in one instruction, which these kernels never
-// issue.
+// k-step kk starts 16 rows = 32W bytes further, SBO again 16W; where one
+// instruction spans several MN blocks (flash's P V at head dim 160: five
+// 32-column blocks), the leading offset (LBO) is the distance from one
+// block to the next.  A K-major operand never reads LBO here: its K
+// extent (16) never passes a swizzle row.
 
 #pragma once
 
@@ -123,12 +124,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
 }
 
 // d (+)= A B, A from registers (mma.sync's A fragment per warp), B from
-// shared memory; TB: 0 K-major, 1 MN-major.
+// shared memory; TB: 0 K-major, 1 MN-major.  N = 160 is flash's P V at
+// head dim 160 in one instruction: B MN-major over five 32-column
+// swizzle atoms, LBO apart.
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
-  static_assert(N == 16 || N == 32 || N == 64, "wgmma_rs: N is 16, 32, 64");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 160,
+                "wgmma_rs: N is 16, 32, 64 or 160");
   if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -163,6 +167,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
           "r"(accumulate), "n"(TB));
   }
+  if constexpr (N == 160) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79"
+        "}, {%80, %81, %82, %83}, %84, p, 1, 1, %86;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+          D8(64), D8(72)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
 }
 
 #undef D8
@@ -179,6 +203,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                                                uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// One plain arrival (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
 }
 // Clock cycles a wait spins before it gives up with a trap (an error of
 // the launch instead of a hung card): ~2 s, far past any wait of a
@@ -269,6 +298,32 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of shared memory (laid out as a TMA load of the same map puts
+// it) into the map's tensor, as a bulk group; elements past the tensor's
+// end are not written.  Coordinates innermost first.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until every committed bulk store has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// This thread's writes to shared memory, made visible to the async proxy
+// (TMA stores, wgmma) of the threads that synchronise with it after.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace hopper

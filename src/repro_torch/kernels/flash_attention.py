@@ -17,7 +17,8 @@ card tests do, to time and check the kernels on the same inputs.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it computes the plain version, :func:`.ref.flash_attention_ref`.
-``stats`` counts both, launches by route.
+``stats`` counts both, launches by route and launching calls by
+``(dtype, B, Sq, Sk, H, Hkv, D, window)``.
 """
 
 from __future__ import annotations
@@ -96,5 +97,6 @@ def launch(q, k, v, *, causal: bool, window: int, force: str = ""):
         build.DTYPE_CODES[dtype], code,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err)
-    stats.launched(route=taken)
+    stats.launched(route=taken,
+                   shape=(dtype, B, Sq, Sk, H, Hkv, D, int(window)))
     return out

@@ -20,7 +20,8 @@ call is one cluster launch on the tensor cores and three passes on the
 CUDA cores; a decode call one on the tensor cores, two past one split on
 the CUDA cores).  The bf16 tensor-core kernels run at every
 head dim 16-256, 160 included (GQA groups 1, 4, 7 and 16, windows,
-partial tiles; stablelm-12b's 32 heads on 8 at 160), and,
+partial tiles; stablelm-12b's 32 heads on 8 at 160, across its 128-row
+blocks at S = 129, 257, 1000 and 1024), and,
 for the SSD, at mamba2-130m's serving calls, at one chunk, 5, 12, 16
 and 32 chunks, at chunk 128, N up to 272 and with the state in tiles (P
 = 96 and 128 in row tiles, N = 512 in column tiles, P = N = 256 in
@@ -276,6 +277,29 @@ def test_cuda_flash_tensor_core_head_dims_groups_windows(cuda, D, H, Hkv,
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     got = flash_mod.launch(q, k, v, causal=True, window=window,
                            force="tensor_core")
+    _close(got.cpu(), want.cpu().float().numpy(), "bfloat16")
+    assert torch.equal(got, flash_mod.launch(q, k, v, causal=True,
+                                             window=window))
+
+
+# head dim 160's pair kernel: 128-row blocks (a 64-row tile a
+# warpgroup) at stablelm-12b's 32 heads on 8, at lengths one row into a
+# block (129), one past two (257) and inside a group's tile (1000),
+# causal and windowed, at B = 1 and 3; and its model check's prompt
+@pytest.mark.parametrize("B,S,window", [
+    (B, S, window) for B in (1, 3) for S in (129, 257, 1000)
+    for window in (0, 100)] + [(1, 1024, 0)])
+def test_cuda_flash_tensor_core_head_dim_160_pairs(cuda, B, S, window):
+    from repro_torch.kernels import flash_attention as flash_mod
+    H, Hkv, D = 32, 8, 160
+    q, k, v = (_t(x, "bfloat16").to(cuda) for x in _inputs(
+        S + B + window, (B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    stats = KERNEL_STATS["flash_attention"]
+    before = stats.launches_by_route.get("tensor_core", 0)
+    got = flash_mod.launch(q, k, v, causal=True, window=window,
+                           force="tensor_core")
+    assert stats.launches_by_route["tensor_core"] - before == 1
     _close(got.cpu(), want.cpu().float().numpy(), "bfloat16")
     assert torch.equal(got, flash_mod.launch(q, k, v, causal=True,
                                              window=window))

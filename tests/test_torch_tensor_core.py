@@ -36,6 +36,8 @@ The kernels themselves run only on a card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -94,6 +96,46 @@ def one_cpu_thread():
 ])
 def test_flash_route_rule(dtype, D, sq, sk, want):
     assert flash_mod.route(dtype, D, sq, sk) == want
+
+
+class _FakeFlashLib:
+    """Stands in for the built library: records the C entry's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_attention_fwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,B,Sq,Sk,H,Hkv,D,window,taken", [
+    ("bfloat16", 4, 512, 512, 32, 8, 160, 0, "tensor_core"),  # stablelm-12b
+    ("bfloat16", 1, 512, 512, 4, 1, 256, 512, "tensor_core"),  # a local layer
+    ("float32", 256, 16, 16, 2, 2, 16, 0, "short"),           # attn-tiny
+    ("float32", 1, 1000, 1000, 14, 2, 64, 0, "cuda_core"),
+])
+def test_flash_wrapper_counts_calls_by_shape(monkeypatch, dtype, B, Sq, Sk,
+                                             H, Hkv, D, window, taken):
+    """Each launching call is counted under its route and by its shape,
+    (dtype, B, Sq, Sk, H, Hkv, D, window), the key ``chip_smoke.py`` times
+    the serving paths' flash calls at; the C entry gets the same sizes."""
+    lib = _FakeFlashLib()
+
+    class _Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    q = torch.zeros((B, Sq, H, D), dtype=getattr(torch, dtype))
+    kv = torch.zeros((B, Sk, Hkv, D), dtype=q.dtype)
+    stats = KERNEL_STATS["flash_attention"]
+    key = (dtype, B, Sq, Sk, H, Hkv, D, window)
+    before = (stats.launches_by_route.get(taken, 0),
+              stats.calls_by_shape.get(key, 0))
+    flash_mod.launch(q, kv, kv, causal=True, window=window)
+    assert lib.calls[-1][4:12] == (B, Sq, Sk, H, Hkv, D, 1, window)
+    assert stats.launches_by_route[taken] - before[0] == 1
+    assert stats.calls_by_shape[key] - before[1] == 1
 
 
 def test_head_dims_the_kernels_are_built_for():
@@ -593,96 +635,407 @@ def test_ssd_cluster_exchange_meets_the_references_at_mamba2_130m(B,
 # --------------------------------------------------------------------- #
 # the flash tensor-core kernel's schedule and arithmetic
 # --------------------------------------------------------------------- #
-# the tensor-core kernel's query rows a block (wgmma's M)
+# the tensor-core kernels' query rows a warpgroup (wgmma's M): a block is
+# two warpgroups on one such tile (flash_tc_kernel), or, at the head dims
+# of PAIR_HEAD_DIMS, a pair of such tiles, one a warpgroup, sharing one
+# K/V ring (flash_tc_pair_kernel)
 TC_BLOCK_Q = 64
+PAIR_HEAD_DIMS = (160,)
+TC_STAGES = 3       # K/V stages of a ring
+
+
+def _tc_block_rows(head_dim):
+    """Query rows a block: 128 at head dim 160, else 64."""
+    return 2 * TC_BLOCK_Q if head_dim in PAIR_HEAD_DIMS else TC_BLOCK_Q
 
 
 def _tc_block_kv(head_dim):
-    """KV rows a tile of ``flash_tc_kernel`` (``TcTile<D>::BKV``): 64, and
-    32 above head dim 128 (160 and 256), where six 64-row stages would not
-    fit an SM."""
+    """KV rows a tile: ``TcPair<D>::BKV``, 64, at head dim 160;
+    ``TcTile<D>::BKV`` elsewhere: 64, and 32 at 256, where the two
+    warpgroups' six 64-row stages would not fit an SM."""
+    if head_dim in PAIR_HEAD_DIMS:
+        return 64
     return 32 if head_dim > 128 else 64
 
 
 def _tc_column_block(head_dim):
-    """Columns of one TMA box and one P V ``wgmma`` (``TcTile<D>::W``): 64
-    where they divide D, else 32 (D = 160: five blocks), else D."""
-    return (64 if head_dim % 64 == 0 else 32 if head_dim % 32 == 0
-            else head_dim)
+    """Columns of one TMA box (``W``): 32 at head dim 160 (five boxes,
+    64-byte swizzled), else 64 where they divide D, else D (16, 32)."""
+    if head_dim in PAIR_HEAD_DIMS:
+        return 32
+    return 64 if head_dim % 64 == 0 else head_dim
+
+
+def _tc_pv_widths(head_dim):
+    """The N of each P V ``wgmma`` a 16-key step: one over every column
+    at head dim 160 (B spans the boxes, LBO a box apart), else one a
+    column box."""
+    if head_dim in PAIR_HEAD_DIMS:
+        return [head_dim]
+    W = _tc_column_block(head_dim)
+    return [W] * (head_dim // W)
 
 
 def _tc_smem_bytes(head_dim):
-    """``TcTile<D>::SMEM``: alignment slack, the Q tile, the two
-    warpgroups' rings of three K/V stages, the barriers."""
-    q = TC_BLOCK_Q * head_dim * 2
-    ring = 2 * 3 * 2 * _tc_block_kv(head_dim) * head_dim * 2
-    return 1024 + q + ring + 8 * (1 + 2 * 3)
+    """The block's shared memory (``SMEM``): alignment slack, the Q
+    tiles, the K/V stages, the barriers (Q's and each stage's)."""
+    q = _tc_block_rows(head_dim) * head_dim * 2
+    stage = 2 * _tc_block_kv(head_dim) * head_dim * 2
+    if head_dim in PAIR_HEAD_DIMS:
+        # two query tiles' Q (one in use, the next landing), the ring, a
+        # full and an empty barrier a Q buffer and a stage
+        return 1024 + 2 * q + TC_STAGES * stage + 8 * (4 + 2 * TC_STAGES)
+    return 1024 + q + 2 * TC_STAGES * stage + 8 * (1 + 2 * TC_STAGES)
 
 
 @pytest.mark.parametrize("D", build.TENSOR_CORE_HEAD_DIMS)
 def test_flash_tc_column_blocks_cover_every_column(D):
-    """The column blocks of the tensor-core kernel tile the head dim: no
-    column goes unloaded or unmultiplied (64-column blocks would leave 32
-    of D = 160's columns over); each block's bytes are a TMA swizzle width
-    (32, 64 or 128); the scores' 16-deep k-steps stay inside one block;
-    and the block's shared memory fits the card, with the merge of the
-    two warpgroups' states inside the idle rings."""
+    """The column boxes of the tensor-core kernels tile the head dim: no
+    column goes unloaded or unmultiplied (64-column boxes would leave 32
+    of D = 160's columns over); each box's bytes are a TMA swizzle width
+    (32, 64 or 128); the scores' 16-deep k-steps stay inside one box;
+    every P V ``wgmma`` has a legal N (a multiple of 8 up to 256) and
+    together they cover D once; and the block's shared memory fits the
+    card, in the two-tile kernel with the merge of the two warpgroups'
+    states inside the idle rings."""
     W = _tc_column_block(D)
     assert D % W == 0 and 2 * W in (32, 64, 128)
     cols = [nb * W + c for nb in range(D // W) for c in range(W)]
     assert cols == list(range(D))
     for kk in range(D // 16):
         assert (kk * 16) // W == (kk * 16 + 15) // W
+    widths = _tc_pv_widths(D)
+    assert all(n % 8 == 0 and 8 <= n <= 256 for n in widths)
+    assert sum(widths) == D
     assert _tc_smem_bytes(D) <= build.MAX_SMEM_BYTES
-    merge = 16 * 128 * (D // 8 + 1)
-    assert merge <= 2 * 3 * 2 * _tc_block_kv(D) * D * 2
+    if D not in PAIR_HEAD_DIMS:
+        merge = 16 * 128 * (D // 8 + 1)
+        assert merge <= 2 * 3 * 2 * _tc_block_kv(D) * D * 2
+
+
+def _tc_visible(r_lo, r_hi, sq, sk, bkv, causal, window):
+    """The pair kernel's ``tc_visible``: the KV tiles query rows [r_lo,
+    r_hi) see, as range(lo, hi); empty where no row is below sq."""
+    r_hi = min(r_hi, sq)
+    if r_lo >= r_hi:
+        return range(0)
+    n_tiles = -(-sk // bkv)
+    hi = min(n_tiles, (r_hi - 1) // bkv + 1) if causal else n_tiles
+    lo = (r_lo - window + 1) // bkv if window > 0 and r_lo - window + 1 > 0 \
+        else 0
+    return range(lo, max(lo, hi))
 
 
 def _tc_tiles(sq, sk, causal, window, head_dim):
-    """``flash_tc_kernel``'s schedule: for each 64-row query tile, the KV
-    tiles it loads (those the causal and window masks leave partly
-    visible, in order), each with the warpgroup that takes it (0, 1, 0,
-    ...)."""
-    bkv = _tc_block_kv(head_dim)
-    n_tiles = -(-sk // bkv)
-    tiles = []
-    for q_lo in range(0, sq, TC_BLOCK_Q):
-        hi = n_tiles
-        if causal:
-            hi = min(n_tiles, (q_lo + TC_BLOCK_Q - 1) // bkv + 1)
-        lo = 0
-        if window > 0 and q_lo - window + 1 > 0:
-            lo = (q_lo - window + 1) // bkv
-        tiles.append([(kt, (kt - lo) % 2) for kt in range(lo, hi)])
-    return tiles
+    """The tensor-core kernels' schedule, one entry a block in row order:
+    its first row, the KV tiles through its ring in order, and for each
+    warpgroup its rows and the tiles it computes on.  ``flash_tc_kernel``
+    (64-row blocks): both groups own the block's rows and take alternate
+    tiles (0, 1, 0, ...), merging at the end.  ``flash_tc_pair_kernel``
+    (head dim 160, 128-row blocks): group g owns rows 64g..64g + 63 and
+    computes on the run of the ring's tiles its own rows see."""
+    bkv, rows = _tc_block_kv(head_dim), _tc_block_rows(head_dim)
+    blocks = []
+    for q_lo in range(0, sq, rows):
+        if head_dim in PAIR_HEAD_DIMS:
+            ring = list(_tc_visible(q_lo, q_lo + rows, sq, sk, bkv, causal,
+                                    window))
+            groups = [(range(g_lo, min(sq, g_lo + TC_BLOCK_Q)),
+                       list(_tc_visible(g_lo, g_lo + TC_BLOCK_Q, sq, sk, bkv,
+                                        causal, window)))
+                      for g_lo in (q_lo, q_lo + TC_BLOCK_Q)]
+        else:
+            n_tiles = -(-sk // bkv)
+            hi = n_tiles
+            if causal:
+                hi = min(n_tiles, (q_lo + rows - 1) // bkv + 1)
+            lo = 0
+            if window > 0 and q_lo - window + 1 > 0:
+                lo = (q_lo - window + 1) // bkv
+            ring = list(range(lo, hi))
+            own = range(q_lo, min(sq, q_lo + rows))
+            groups = [(own, ring[g::2]) for g in (0, 1)]
+        blocks.append({"q_lo": q_lo, "ring": ring, "groups": groups})
+    return blocks
 
 
 def _visible(q, k, causal, window):
     return (not causal or k <= q) and (window == 0 or k > q - window)
 
 
-@pytest.mark.parametrize("D", [64, 160, 256])  # 64-, 32-, 32-row KV tiles
+@pytest.mark.parametrize("D", [64, 160, 256])  # 64-, 64-, 32-row KV tiles
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [0, 16, 100])
-@pytest.mark.parametrize("S", [1, 33, 64, 100, 257])
+@pytest.mark.parametrize("S", [1, 33, 64, 100, 129, 257])
 def test_flash_tc_schedule_covers_each_visible_pair_once(S, window, causal,
                                                           D):
-    BQ, BKV = TC_BLOCK_Q, _tc_block_kv(D)
-    tiles = _tc_tiles(S, S, causal, window, D)
-    assert len(tiles) == -(-S // BQ)
-    for qt, listed in enumerate(tiles):
-        kts = [kt for kt, _ in listed]
-        assert kts == sorted(set(kts))                 # each tile once
-        assert [c for _, c in listed] == [i % 2 for i in range(len(kts))]
-        rows = range(qt * BQ, min(S, qt * BQ + BQ))
-        for q in rows:
+    """Every (query, key) pair the masks leave visible lies in exactly one
+    tile computed for its row; no tile through a ring is wholly masked
+    for the block's rows.  The two-tile kernel's groups take alternate
+    tiles of the ring; the pair kernel's groups each compute on a
+    contiguous run of it (their union is the ring, so every loaded tile is
+    read), none on a tile wholly masked for its own rows, and its blocks
+    are 128 rows."""
+    BKV = _tc_block_kv(D)
+    blocks = _tc_tiles(S, S, causal, window, D)
+    assert len(blocks) == -(-S // (128 if D == 160 else 64))
+    for blk in blocks:
+        ring = blk["ring"]
+        assert ring == list(range(ring[0], ring[0] + len(ring)))  # once each
+        for q in range(blk["q_lo"], min(S, blk["q_lo"] + _tc_block_rows(D))):
+            mine = [kt for rows, kts in blk["groups"] if q in rows
+                    for kt in kts]
             for k in range(S):
                 if _visible(q, k, causal, window):
                     assert sum(kt * BKV <= k < kt * BKV + BKV
-                               for kt in kts) == 1
-        for kt in kts:                                 # no tile wholly masked
+                               for kt in mine) == 1
+        rows = range(blk["q_lo"], min(S, blk["q_lo"] + _tc_block_rows(D)))
+        for kt in ring:                              # no tile wholly masked
             assert any(_visible(q, k, causal, window) for q in rows
                        for k in range(kt * BKV, min(S, kt * BKV + BKV)))
+        if D not in PAIR_HEAD_DIMS:
+            assert [g[1] for g in blk["groups"]] == [ring[0::2], ring[1::2]]
+            continue
+        assert set(kt for _, kts in blk["groups"] for kt in kts) == set(ring)
+        for g_rows, kts in blk["groups"]:
+            assert len(g_rows) <= TC_BLOCK_Q
+            if kts:
+                start = ring.index(kts[0])
+                assert ring[start:start + len(kts)] == kts   # a run
+            for kt in kts:
+                assert any(_visible(q, k, causal, window) for q in g_rows
+                           for k in range(kt * BKV, min(S, kt * BKV + BKV)))
+
+
+H100_SMS = 132
+
+
+def _tc_pair_items(sq, heads, batch, causal, sms=H100_SMS):
+    """The pair kernel's persistent grid: G = min(items, sms) blocks, block
+    i walking items i, 2G - 1 - i, 2G + i, 4G - 1 - i, ... (a zig-zag:
+    after one of the heaviest, one of the lightest) while they exist;
+    item z * heads * batch + b * heads + h is query tile z of (b, h), the
+    last first under causal masking.  Returns each block's (query tile,
+    b, h) in its order."""
+    n_qt = -(-sq // 128)
+    items = n_qt * heads * batch
+    grid = min(items, sms)
+    blocks = []
+    for i in range(grid):
+        walk = []
+        for n in itertools.count():
+            it = n * grid + (grid - 1 - i if n % 2 else i)
+            if it >= items:
+                break
+            z, hb = divmod(it, heads * batch)
+            walk.append((n_qt - 1 - z if causal else z, hb // heads,
+                         hb % heads))
+        blocks.append(walk)
+    return blocks
+
+
+def _ring_run(blks, rng):
+    """One persistent block of the pair kernel (its query tiles ``blks``,
+    from ``_tc_tiles``, in its order) under one random interleaving of its
+    producer and two warpgroups, step by step as the kernel's code orders
+    them.  The producer loads each query tile's Q into buffer n % 2 (from
+    the third on, once both groups have stored the O of the tile two
+    before from it) and then its KV tiles through the one ring, ring tile
+    jg >= STAGES once both groups have released tile jg - STAGES (its
+    stage's empty barrier, waited on by phase parity).  The groups take
+    turns in rounds 0..n_vis of each query tile, group 0 first: group 1
+    passes the block's first turn at its start, and after its last round
+    of a query tile passes the next one's first turn (none after the
+    block's last); in round r a group waits for tile r if it computes S_r
+    (for Q too in its first round), waits for its turn, issues, passes,
+    then releases tile r - 1; after its rounds it stores O and hands its Q
+    buffer back.  Returns the tiles each group read in order and the
+    order of the rounds' issues; raises on a deadlock, a wait that passes
+    on the wrong tile or Q, or a load over a tile or Q still in use."""
+    st = TC_STAGES
+    full, empty = [0] * st, [0] * st       # phases completed
+    qfull, qempty = [0, 0], [0, 0]
+    holds, qholds = [None] * st, [None, None]
+    freed = {0: set(), 1: set()}
+    qfreed = {0: set(), 1: set()}
+    released, qreleased = [0] * st, [0, 0]
+    passes = {0: 0, 1: 0}
+    waits = {0: 0, 1: 0}
+    read, issues = {0: [], 1: []}, []
+
+    def run(g):
+        ops = [("pass", None)] if g == 1 else []
+        jg0 = 0
+        for n, blk in enumerate(blks):
+            ring = blk["ring"]
+            n_vis = len(ring)
+            kts = blk["groups"][g][1]
+            a = ring.index(kts[0]) if kts else n_vis + 1
+            e = a + len(kts)
+            more = n + 1 < len(blks)
+            for r in range(n_vis + 1):
+                if r == a:
+                    ops.append(("qfull", n))
+                if a <= r < e:
+                    ops.append(("wait", (jg0 + r, ring[r])))
+                ops += [("turn", None), ("issue", (n, r))]
+                if g == 0 or r < n_vis or more:
+                    ops.append(("pass", None))
+                if r > 0:
+                    ops.append(("release", jg0 + r - 1))
+            ops.append(("qempty", n))
+            jg0 += n_vis
+        return ops
+
+    def produce():
+        ops, jg = [], 0
+        for n, blk in enumerate(blks):
+            ops.append(("qload", n))
+            for kt in blk["ring"]:
+                ops.append(("load", (jg, kt)))
+                jg += 1
+        return ops
+    progs = {0: run(0), 1: run(1), "p": produce()}
+    pos = {k: 0 for k in progs}
+
+    def ready(k):
+        op, x = progs[k][pos[k]]
+        if op == "wait":
+            return full[x[0] % st] % 2 != (x[0] // st) % 2
+        if op == "qfull":
+            return qfull[x % 2] % 2 != (x // 2) % 2
+        if op == "turn":
+            return passes[1 - k] > waits[k]
+        if op == "load" and x[0] >= st:
+            return empty[x[0] % st] % 2 != (x[0] // st - 1) % 2
+        if op == "qload" and x >= 2:
+            return qempty[x % 2] % 2 != (x // 2 - 1) % 2
+        return True
+
+    while any(pos[k] < len(progs[k]) for k in progs):
+        live = [k for k in progs if pos[k] < len(progs[k]) and ready(k)]
+        assert live, "deadlock"
+        k = live[rng.integers(len(live))]
+        op, x = progs[k][pos[k]]
+        pos[k] += 1
+        if op == "load":
+            s = x[0] % st
+            if holds[s] is not None:
+                assert holds[s] in freed[0] and holds[s] in freed[1]
+            holds[s] = x[0]
+            full[s] += 1
+        elif op == "qload":
+            if qholds[x % 2] is not None:
+                assert qholds[x % 2] in qfreed[0] and qholds[x % 2] in qfreed[1]
+            qholds[x % 2] = x
+            qfull[x % 2] += 1
+        elif op == "wait":
+            assert holds[x[0] % st] == x[0]
+            read[k].append(x[1])
+        elif op == "qfull":
+            assert qholds[x % 2] == x
+        elif op == "turn":
+            waits[k] += 1
+        elif op == "issue":
+            issues.append((k, x))
+        elif op == "pass":
+            passes[k] += 1
+        elif op == "release":
+            freed[k].add(x)
+            released[x % st] += 1
+            if released[x % st] == 2:
+                released[x % st] = 0
+                empty[x % st] += 1
+        else:
+            qfreed[k].add(x)
+            qreleased[x % 2] += 1
+            if qreleased[x % 2] == 2:
+                qreleased[x % 2] = 0
+                qempty[x % 2] += 1
+    assert passes[0] == waits[1] and passes[1] == waits[0]
+    return read, issues
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 16, 100])
+@pytest.mark.parametrize("S", [1, 64, 100, 129, 257, 1000])
+def test_flash_tc_pair_ring_never_deadlocks(S, window, causal):
+    """Under many random interleavings of the producer and the two
+    warpgroups, a persistent block of the pair kernel walking several
+    query tiles (S's tiles of 2 heads, few SMs, so a block holds up to 8)
+    loads every tile of each query tile's ring and each Q once, never
+    refills a stage or a Q buffer still in use, never lets a wait pass on
+    the wrong tile or Q, hands each group exactly its runs, and the groups
+    issue their products in alternate turns, group 0 first, every turn
+    waited for passed once."""
+    rng = np.random.default_rng(S + window)
+    tiles = _tc_tiles(S, S, causal, window, 160)
+    for walk in _tc_pair_items(S, 2, 1, causal, sms=3):
+        blks = [tiles[qt] for qt, _, _ in walk]
+        for _ in range(10):
+            read, issues = _ring_run(blks, rng)
+            for g in (0, 1):
+                assert read[g] == [kt for blk in blks
+                                   for kt in blk["groups"][g][1]]
+            assert issues == [(g, (n, r)) for n, blk in enumerate(blks)
+                              for r in range(len(blk["ring"]) + 1)
+                              for g in (0, 1)]
+
+
+@pytest.mark.parametrize("S,heads,batch,causal", [
+    (512, 32, 1, True), (512, 32, 4, True), (100, 8, 3, False),
+    (1024, 32, 1, True), (2048, 32, 2, True)])
+def test_flash_tc_pair_items_cover_each_query_tile_once(S, heads, batch,
+                                                        causal):
+    """The persistent grid has min(items, SMs) blocks; every (query tile,
+    b, h) is walked by exactly one block; under causal masking each block
+    walks its tiles heaviest first, the first wave holds the heaviest
+    tiles of the launch, and no block's KV tiles exceed the average by
+    more than a quarter of the heaviest query tile's (a round robin gave
+    24 against an average of 17.5 at B = 1, S = 1024, and 144 against
+    131.9 at B = 2, S = 2048; the zig-zag gives 18 and 136)."""
+    blocks = _tc_pair_items(S, heads, batch, causal)
+    n_qt = -(-S // 128)
+    assert len(blocks) == min(n_qt * heads * batch, H100_SMS)
+    walked = [it for walk in blocks for it in walk]
+    assert sorted(walked) == sorted((qt, b, h) for qt in range(n_qt)
+                                    for b in range(batch)
+                                    for h in range(heads))
+    if causal:
+        for walk in blocks:
+            assert [qt for qt, _, _ in walk] == sorted(
+                (qt for qt, _, _ in walk), reverse=True)
+        first = [walk[0][0] for walk in blocks]
+        later = [qt for walk in blocks for qt, _, _ in walk[1:]]
+        if later:
+            assert min(first) >= max(later)
+        loads = [sum(2 * qt + 2 for qt, _, _ in walk) for walk in blocks]
+        heaviest = 2 * n_qt
+        assert max(loads) <= max(sum(loads) / len(loads) + heaviest / 4,
+                                 heaviest)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_flash_tc_pair_grid_at_stablelm_12b(B):
+    """At stablelm-12b's prefill (S = 512, 32 heads): 128-row query
+    tiles, so B = 1 is 128 of them, one a block in one wave of the H100's
+    132 SMs, and B = 4 is 512 over 132 persistent blocks (3 or 4 each);
+    under causal masking the heaviest tile (walked first) reads 8 KV tiles
+    of 64 rows, its group 0 computing on 7 and group 1 on 8; and one
+    block a SM fits (two 40 KB Q buffers, a ring of 3 stages of 40 KB)."""
+    S, H, D = 512, 32, 160
+    blocks = _tc_tiles(S, S, True, 0, D)
+    assert len(blocks) * H * B == 128 * B
+    walks = _tc_pair_items(S, H, B, True)
+    assert len(walks) == min(128 * B, H100_SMS)
+    assert sorted(len(w) for w in walks) == ([1] * 128 if B == 1 else
+                                             [3] * 16 + [4] * 116)
+    heaviest = blocks[-1]
+    assert walks[0][0][0] == len(blocks) - 1
+    assert len(heaviest["ring"]) == 8
+    assert [len(kts) for _, kts in heaviest["groups"]] == [7, 8]
+    assert _tc_smem_bytes(D) == 1024 + 2 * 40960 + 3 * 40960 + 8 * 10
+    assert 2 * (_tc_smem_bytes(D) + 1024) > 228 * 1024
 
 
 # the CUDA-core (fp32) kernel's query rows a tile, and the blocks (a
@@ -820,15 +1173,21 @@ def test_flash_cc_schedule_at_gemma3_1b_model_check():
 
 
 def _flash_tc_model(q, k, v, *, causal, window):
-    """(B, Sq, H, D) in q's dtype by ``flash_tc_kernel``'s arithmetic, in
-    PyTorch: per 64-row query tile, the KV tiles of ``_tc_tiles`` split
-    between the two warpgroups; each runs an online softmax in fp32 in the
-    log2 domain (masked scores at -0.7 FLT_MAX, so a tile wholly masked
-    for a row before its first visible one is wiped by alpha = 0) with P
-    rounded to bf16 before P V; then the two states are merged."""
+    """(B, Sq, H, D) in q's dtype by the tensor-core kernels' arithmetic,
+    in PyTorch, over ``_tc_tiles``' schedule: each warpgroup runs an
+    online softmax in fp32 in the log2 domain over its tiles (masked
+    scores at -0.7 FLT_MAX, so a tile wholly masked for a row before its
+    first visible one is wiped by alpha = 0) with P rounded to bf16 before
+    P V.  In the two-tile kernel both groups hold the block's 64 rows and
+    their states are merged; in the pair kernel (head dim 160) group g
+    holds rows 64g..64g + 63 of the 128-row block and writes them alone
+    (off the edge tiles it folds the scale into the exponent, one rounding
+    fewer, and its 2^x is the hardware's approximation: differences far
+    inside bf16's tolerance)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     BQ, BKV = TC_BLOCK_Q, _tc_block_kv(D)
+    pair = D in PAIR_HEAD_DIMS
     neg = torch.tensor(-0.7 * np.finfo(np.float32).max, dtype=torch.float32)
     scale_log2 = np.float32(1.0 / np.sqrt(D)) * np.float32(1.4426950408889634)
     grp = torch.arange(H) // (H // Hkv)
@@ -837,19 +1196,18 @@ def _flash_tc_model(q, k, v, *, causal, window):
     kf[:, :Sk] = k.float()[:, :, grp]
     vf[:, :Sk] = v.float()[:, :, grp]
     out = torch.zeros(B, Sq, H, D)
-    for qt, listed in enumerate(_tc_tiles(Sq, Sk, causal, window, D)):
-        rows = torch.arange(qt * BQ, qt * BQ + BQ)
-        n = min(Sq, qt * BQ + BQ) - qt * BQ
-        qf = torch.zeros(B, BQ, H, D)
-        qf[:, :n] = q.float()[:, qt * BQ:qt * BQ + n]
+    for blk in _tc_tiles(Sq, Sk, causal, window, D):
         states = []
-        for consumer in (0, 1):
+        for g, (_, kts) in enumerate(blk["groups"]):
+            r_lo = blk["q_lo"] + (BQ * g if pair else 0)
+            n = max(0, min(Sq, r_lo + BQ) - r_lo)
+            rows = torch.arange(r_lo, r_lo + BQ)
+            qf = torch.zeros(B, BQ, H, D)
+            qf[:, :n] = q.float()[:, r_lo:r_lo + n]
             m = neg.expand(B, H, BQ).clone()
             l = torch.zeros(B, H, BQ)
             acc = torch.zeros(B, H, BQ, D)
-            for kt, c in listed:
-                if c != consumer:
-                    continue
+            for kt in kts:
                 keys = torch.arange(kt * BKV, kt * BKV + BKV)
                 kk, vv = kf[:, kt * BKV:kt * BKV + BKV], vf[:, kt * BKV:
                                                             kt * BKV + BKV]
@@ -867,13 +1225,18 @@ def _flash_tc_model(q, k, v, *, causal, window):
                 acc = acc * alpha[..., None] + torch.einsum(
                     "bhqk,bkhd->bhqd", p.bfloat16().float(), vv)
                 m = m_new
-            states.append((m, l, acc))
-        (m0, l0, a0), (m1, l1, a1) = states
+            states.append((r_lo, n, m, l, acc))
+        if pair:
+            for r_lo, n, m, l, acc in states:
+                o = acc / torch.clamp(l, min=1e-30)[..., None]
+                out[:, r_lo:r_lo + n] = o.permute(0, 2, 1, 3)[:, :n]
+            continue
+        (r_lo, n, m0, l0, a0), (_, _, m1, l1, a1) = states
         mm = torch.maximum(m0, m1)
         w0, w1 = torch.exp2(m0 - mm), torch.exp2(m1 - mm)
         o = (a0 * w0[..., None] + a1 * w1[..., None]) / torch.clamp(
             l0 * w0 + l1 * w1, min=1e-30)[..., None]
-        out[:, qt * BQ:qt * BQ + n] = o.permute(0, 2, 1, 3)[:, :n]
+        out[:, r_lo:r_lo + n] = o.permute(0, 2, 1, 3)[:, :n]
     return out.to(q.dtype)
 
 
@@ -884,7 +1247,7 @@ def _flash_tc_model(q, k, v, *, causal, window):
     (2, 100, 2, 2, 64, 33, True),
     (1, 70, 2, 1, 128, 16, False),
     (1, 100, 4, 1, 256, 0, False),   # gemma3-1b's head dim
-    (1, 100, 8, 2, 160, 0, True),    # stablelm-12b's head dim, 32-row tiles
+    (1, 100, 8, 2, 160, 0, True),    # stablelm-12b's head dim: a pair
 ])
 def test_flash_tc_model_matches_references(B, S, H, Hkv, D, window,
                                            jax_too):
@@ -903,6 +1266,34 @@ def test_flash_tc_model_matches_references(B, S, H, Hkv, D, window,
                                   block_q=32, block_kv=32)
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(jo, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (32, 8)])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("S", [100, 129, 200, 257])
+def test_flash_tc_pair_model_matches_references(S, window, H, Hkv):
+    """The pair kernel's arithmetic (head dim 160: 128-row blocks, a
+    64-row tile a warpgroup, 64-row KV tiles, no merge) against
+    ``ref.flash_attention_ref`` and the JAX package's ``flash_attention``
+    (the Pallas kernel in interpret mode) at bf16's tolerance, at lengths
+    that end inside a group's tile (100, 200), one row into a block (129)
+    and one row past two blocks (257), with GQA groups of 4."""
+    D = 160
+    arrays = [np.random.default_rng(S + H + window).standard_normal(
+        sh).astype(np.float32)
+        for sh in ((1, S, H, D), (1, S, Hkv, D), (1, S, Hkv, D))]
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    got = _flash_tc_model(q, k, v, causal=True, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, S, H, D)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **BF16_TOL)
+    import jax.numpy as jnp
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
+    jo = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                              block_q=32, block_kv=32)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jo, np.float32), **BF16_TOL)
 
 
 def test_ssd_forced_cluster_needs_the_cluster_kernel():

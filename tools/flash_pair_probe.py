@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""Take the design of flash's head-dim-160 tensor-core kernel apart, on one
+card: each variant undoes one choice of ``flash_tc_pair_kernel``, or adds
+clock stamps to it, and all are timed in turns against the kernel as it is.
+
+Run from the root of a checkout on a machine with a CUDA card::
+
+    python3 tools/flash_pair_probe.py [--variants exp2f,noturns,...] \\
+        [--out FILE]
+
+Each variant is a copy of this checkout's ``src`` under
+``build/pair_probe/<variant>`` (``.gitignore`` lists ``build/``) with one
+edit to ``csrc/flash_attention.cu``, built into its own directory and
+timed in a fresh process (``chip_smoke.time_ms``: device ms by CUDA
+events) at :data:`SHAPES`, with its largest error against the plain
+version and ptxas's register line.  The variants (:data:`VARIANTS`):
+
+* ``base``: the kernel as it is (timed first and last);
+* ``exp2f``: the softmax's 2^x by ``exp2f`` in place of ``ex2.approx``;
+* ``noturns``: no turns: both groups issue their products when ready;
+* ``roundrobin``: a persistent block takes query tiles i, i + G, ...
+  in place of the zig-zag i, 2G - 1 - i, ...;
+* ``stages2``: a ring of two K/V stages in place of three;
+* ``trace``: the kernel with ``clock64`` stamps around each stage of a
+  steady round (the full-tile wait, the turn, the issue of S and P V, the
+  wait for S, the softmax, the wait for P V, then pack, rescale and
+  release) in both groups of block 0's first query tile, written over
+  its output rows (the output is not checked); the worker prints each
+  stage's mean cycles over the rounds.
+
+An edit that no longer finds its anchor in the source raises: the probe
+follows the kernel's code and has to be brought up to date with it.
+The result, one JSON object, goes to standard output (and ``--out``).
+Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CU = "repro_torch/kernels/csrc/flash_attention.cu"
+# (B, S): stablelm-12b's prefill (32 heads on 8 of 160) at B = 1..4 over a
+# 512-token prompt, and its model check's 1024 positions
+SHAPES = ((1, 512), (2, 512), (3, 512), (4, 512), (1, 1024))
+HEADS, KV_HEADS, HEAD_DIM = 32, 8, 160
+# stages a steady round of the trace variant stamps, in order
+TRACE_STAGES = ("full_wait", "turn_wait", "issue", "s_wait", "softmax",
+                "pv_wait", "pack_rescale_release")
+
+VARIANTS = {
+    "base": [],
+    "exp2f": [(
+        '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n',
+        "  y = exp2f(x);\n")],
+    "noturns": [
+        ('  asm volatile("bar.sync %0, 256;\\n" :: "r"(4 + grp) : "memory");',
+         ""),
+        ('  asm volatile("bar.arrive %0, 256;\\n" :: "r"(5 - grp) : "memory");',
+         "")],
+    "roundrobin": [(
+        "    return n * G + (n % 2 ? G - 1 - (int)blockIdx.x : "
+        "(int)blockIdx.x);",
+        "    return n * G + (int)blockIdx.x;")],
+    "stages2": [(
+        "  static constexpr int STAGES = 3;",
+        "  static constexpr int STAGES = 2;")],
+    "trace": [
+        ("  const int tid = threadIdx.x;\n\n  if (tid == 0) {\n"
+         "    for (int qb = 0; qb < 2; ++qb) {",
+         "  const int tid = threadIdx.x;\n"
+         "  unsigned tr[128];\n  int ntr = 0;\n"
+         "  const bool rec = blockIdx.x == 0 && tid % 128 == 0;\n"
+         "#define TR() do { if (rec && ntr < 128) "
+         "tr[ntr++] = (unsigned)clock64(); } while (0)\n\n"
+         "  if (tid == 0) {\n    for (int qb = 0; qb < 2; ++qb) {"),
+        ("        wait_tile(r);\n        turn_wait(grp);",
+         "        TR();\n        wait_tile(r);\n        TR();\n"
+         "        turn_wait(grp);\n        TR();"),
+        ("        pass(r);\n        hopper::wgmma_wait<1>();",
+         "        pass(r);\n        TR();\n        hopper::wgmma_wait<1>();"
+         "\n        TR();"),
+        ("                          causal, window, scale_log2);\n"
+         "        hopper::wgmma_wait<0>();",
+         "                          causal, window, scale_log2);\n"
+         "        TR();\n        hopper::wgmma_wait<0>();\n        TR();"),
+        ("      // round e: P_{e-1} V_{e-1} alone\n",
+         "      TR();\n      // round e: P_{e-1} V_{e-1} alone\n"),
+        ("        hopper::bulk_wait_read();\n      }\n    }\n"
+         "    if (wt == 0) hopper::mbar_arrive(&q_empty[qb]);\n",
+         "        hopper::bulk_wait_read();\n"
+         '        asm volatile("cp.async.bulk.wait_group 0;\\n" ::: '
+         '"memory");\n      }\n    }\n'
+         "    if (wt == 0) hopper::mbar_arrive(&q_empty[qb]);\n"
+         "    if (rec && n == 0) {\n"
+         "      uint32_t* dst = reinterpret_cast<uint32_t*>(\n"
+         "          o_dbg + ((size_t)(it.b * Sq + g_lo) * H + it.h) * D);\n"
+         "      for (int k = 0; k < ntr && k < 79; ++k) dst[k] = tr[k];\n"
+         "      dst[79] = ntr;\n    }\n"),
+        ("                     const __grid_constant__ CUtensorMap tm_o, "
+         "int B, int Sq,",
+         "                     const __grid_constant__ CUtensorMap tm_o,\n"
+         "                     bf16* o_dbg, int B, int Sq,"),
+        ("      mq, mk, mv, mo, B, Sq, Sk, H, Hkv, causal, window, "
+         "scale * kLog2e);",
+         "      mq, mk, mv, mo, static_cast<bf16*>(o), B, Sq, Sk, H, Hkv, "
+         "causal, window, scale * kLog2e);")],
+}
+
+
+def make_variant(name: str, edits) -> Path:
+    """A copy of this checkout's src with the variant's edits, under
+    build/pair_probe/<name>; returns its src directory."""
+    dst = ROOT / "build" / "pair_probe" / name
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(ROOT / "src", dst / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = dst / "src" / CU
+    text = path.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"flash_pair_probe: variant {name}: the anchor "
+                             f"{old[:60]!r} is not in the source once")
+        text = text.replace(old, new)
+    path.write_text(text)
+    return dst / "src"
+
+
+def _trace_stages(stamps: list) -> dict:
+    """Mean cycles of each steady-round stage from one group's stamps:
+    seven a round (before the tile's wait, after it, after the turn, after
+    the issue, after S, after the softmax, after P V), each round closed
+    by the next one's first stamp (the last by the stamp before the round
+    that issues P V alone)."""
+    n_rounds = (len(stamps) - 1) // 7
+    out = {s: [] for s in TRACE_STAGES}
+    for r in range(n_rounds):
+        x = stamps[7 * r:7 * r + 8]
+        for k, s in enumerate(TRACE_STAGES):
+            out[s].append((x[k + 1] - x[k]) & 0xFFFFFFFF)
+    return {s: sum(v) / len(v) for s, v in out.items() if v}
+
+
+def worker(name: str) -> dict:
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "build" / "pair_probe" / name / "src"))
+    os.environ["REPRO_TORCH_BUILD_DIR"] = str(
+        ROOT / "build" / "pair_probe" / name / "kernels")
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as flash_mod
+    build.build_kernels()
+    out = {"variant": name, "rows": [],
+           "ptxas": cs.ptxas_of(build.build_log.get("flash_attention", ""),
+                                "flash_tc_pair_kernel")}
+    dev = torch.device("cuda")
+    for B, S in SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(B + S)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                   for shape in ((B, S, HEADS, HEAD_DIM),
+                                 (B, S, KV_HEADS, HEAD_DIM),
+                                 (B, S, KV_HEADS, HEAD_DIM)))
+
+        def call():
+            return flash_mod.launch(q, k, v, causal=True, window=0,
+                                    force="tensor_core")
+        row = {"shape": {"B": B, "S": S}}
+        o = call()
+        torch.cuda.synchronize()
+        if name == "trace":
+            # block 0's first query tile is the last of (b, h) = (0, 0)
+            q_lo = ((S + 127) // 128 - 1) * 128
+            row["stages"] = {}
+            for g in (0, 1):
+                words = o[0, q_lo + 64 * g, 0].contiguous().view(
+                    torch.int32).cpu().tolist()
+                stamps = [x & 0xFFFFFFFF
+                          for x in words[:min(words[79], 79)]]
+                row["stages"][g] = _trace_stages(stamps)
+        else:
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            row["max_abs_err"] = float((o.float() - want.float()).abs().max())
+        row["ms"] = cs.time_ms(torch, call, iters=50)["ms"]
+        out["rows"].append(row)
+        del q, k, v, o
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variants", default=",".join(
+        v for v in VARIANTS if v != "base"),
+        help="variants to time between two runs of base, of "
+             + ",".join(VARIANTS))
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker)))
+        return 0
+    names = [v for v in args.variants.split(",") if v]
+    if set(names) - set(VARIANTS):
+        ap.error(f"--variants: pick from {','.join(VARIANTS)}")
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_pair_probe: no CUDA device", file=sys.stderr)
+        return 2
+    order = ["base", *names, "base"]
+    for name in set(order):
+        make_variant(name, VARIANTS[name])
+    runs = []
+    for name in order:
+        proc = subprocess.run(
+            [sys.executable, __file__, "--worker", name], capture_output=True,
+            text=True, timeout=900, env={**os.environ, "PYTHONPATH": ""})
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    text = json.dumps({"card": smi, "order": order, "runs": runs})
+    if args.out:
+        args.out.write_text(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,13 +22,18 @@ Every worker times, on the same seeded inputs:
   compared;
 * ``flash_attention`` forced onto its CUDA-core route (fp32) at
   :data:`FLASH_SHAPES`: row 1a's shape and the fp32 model checks';
+* ``flash_attention`` forced onto its tensor-core route (bf16,
+  ``flash_tc``) at :data:`FLASH_TC_SHAPES` (each serving head dim's
+  prefill at B = 1 and 4) and, with ``--calls``, at every shape of the
+  flash row's ``calls_by_shape`` (the serving phases' calls), so the
+  call-weighted total can be compared;
 * ``ssd_scan`` forced onto its tensor-core route (bf16) at
   :data:`SSD_SHAPES` (mamba2-130m's serving calls at B = 1, 2, 4 and
   ``chip_smoke.py``'s wide bf16 shapes) and, with ``--calls``, at every
   shape of the SSD row's ``calls_by_shape``, so the call-weighted total
   can be compared.
 
-``--kernels`` picks which of the three each worker times (all by
+``--kernels`` picks which of the four each worker times (all by
 default).  Each time is ``chip_smoke.time_ms`` (device ms by CUDA
 events, host ms beside) and the profiler's kernel records per call.  A
 worker of a checkout whose decode or SSD runs as one cluster launch also
@@ -69,6 +74,15 @@ FLASH_SHAPES = ((4, 512, 4, 1, 256, 0), (1, 1024, 4, 1, 256, 0),
                 (1, 1024, 4, 1, 256, 512), (1, 1000, 16, 16, 64, 0),
                 (1, 1000, 14, 2, 64, 0), (1, 2100, 16, 1, 256, 2048),
                 (1, 1024, 32, 8, 160, 0), (4, 512, 32, 8, 160, 0))
+# (B, S, H, Hkv, D), causal, bf16: each serving head dim's prefill at
+# B = 1 and 4 over a 512-token prompt: gemma3-1b's 4 heads on 1 and
+# recurrentgemma-9b's 16 on 1 at 256, the head-dim-64 paths' groups
+# (seamless-m4t-medium's 16 on 16, internvl2-1b's 14 on 2), llama3-8b's
+# and minitron-8b's 32 on 8 at 128, stablelm-12b's at 160
+FLASH_TC_SHAPES = tuple(
+    (B, 512, H, Hkv, D) for B in (1, 4)
+    for H, Hkv, D in ((4, 1, 256), (16, 1, 256), (16, 16, 64), (14, 2, 64),
+                      (32, 8, 128), (32, 8, 160)))
 # (B, S, H, P, G, N, chunk): mamba2-130m's prefill at B = 1, 2, 4 (row 3a
 # at B = 4), then chip_smoke.py's wide bf16 shapes
 SSD_SHAPES = ((1, 512, 24, 64, 1, 128, 64), (2, 512, 24, 64, 1, 128, 64),
@@ -76,18 +90,19 @@ SSD_SHAPES = ((1, 512, 24, 64, 1, 128, 64), (2, 512, 24, 64, 1, 128, 64),
               (2, 2048, 24, 64, 2, 64, 128), (2, 256, 4, 80, 1, 64, 64),
               (1, 256, 4, 64, 1, 256, 128), (1, 256, 4, 64, 1, 272, 64),
               (2, 256, 4, 128, 1, 64, 64), (1, 256, 4, 64, 1, 512, 32))
-KERNELS = ("decode", "flash", "ssd")
+KERNELS = ("decode", "flash", "ssd", "flash_tc")
 
 
 def _serving_calls(log: Path) -> dict:
-    """The decode and SSD rows' ``calls_by_shape`` from a chip_smoke
-    log."""
+    """The decode, SSD and flash rows' ``calls_by_shape`` from a
+    chip_smoke log."""
     for line in log.read_text().splitlines():
         if line.startswith('{"kernels"'):
             rows = {r["name"]: r for r in json.loads(line)["kernels"]}
             return {k: rows[name].get("calls_by_shape", [])
                     for k, name in (("decode", "decode_attention"),
-                                    ("ssd", "ssd_scan"))}
+                                    ("ssd", "ssd_scan"),
+                                    ("flash_tc", "flash_attention"))}
     raise SystemExit(f"kernel_ab: no kernels line in {log}")
 
 
@@ -146,6 +161,45 @@ def _time_ssd(torch, cs, inputs, calls: list) -> list:
                     row["ms_by_cluster"][c] = None
         rows.append(row)
         del args, x, B_in, C_in, dt, want_y, want_h
+    return rows
+
+
+def _time_flash_tc(torch, cs, inputs, calls: list) -> list:
+    """Flash forced onto its tensor cores at :data:`FLASH_TC_SHAPES` and
+    the serving calls' bf16 shapes."""
+    from repro_torch.kernels import KERNEL_STATS, build, ref
+    from repro_torch.kernels import flash_attention as flash_mod
+    shapes = [(B, S, S, H, Hkv, D, 0, None)
+              for B, S, H, Hkv, D in FLASH_TC_SHAPES]
+    shapes += [(*(c["shape"][x] for x in ("B", "Sq", "Sk", "H", "Hkv", "D",
+                                          "window")), c["calls"])
+               for c in calls if c["dtype"] == "bfloat16"]
+    rows = []
+    for B, Sq, Sk, H, Hkv, D, window, n_calls in shapes:
+        if D not in build.TENSOR_CORE_HEAD_DIMS:
+            continue
+        q, k, v = inputs(B + Sq + H + D + window,
+                         ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)),
+                         torch.bfloat16)
+
+        def call():
+            return flash_mod.launch(q, k, v, causal=True, window=window,
+                                    force="tensor_core")
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        err = float((call().float() - want.float()).abs().max())
+        t = cs.time_ms(torch, call, iters=50)
+        rec = cs._kernel_records(torch, call,
+                                 KERNEL_STATS["flash_attention"])
+        rows.append({"shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H,
+                               "Hkv": Hkv, "D": D, "window": window},
+                     "calls": n_calls, "ms": t["ms"],
+                     "host_ms": t["host_ms"], "covered": t["covered"],
+                     "max_abs_err": err,
+                     "profiler_ms": sum(rec["kernels_ms"].values()),
+                     "kernels_ms": rec["kernels_ms"],
+                     "records_per_call": rec["records_per_call"],
+                     "launches_per_call": rec["launches_per_call"]})
+        del q, k, v, want
     return rows
 
 
@@ -230,6 +284,8 @@ def worker(src: str, calls: dict, kernels=KERNELS) -> dict:
         del q, k, v, want
     ssd = (_time_ssd(torch, cs, inputs, calls.get("ssd", []))
            if "ssd" in kernels else [])
+    flash_tc = (_time_flash_tc(torch, cs, inputs, calls.get("flash_tc", []))
+                if "flash_tc" in kernels else [])
     occupancy = {}
     lib = build.library("decode_attention")
     if sizes and "decode" in kernels:
@@ -241,7 +297,8 @@ def worker(src: str, calls: dict, kernels=KERNELS) -> dict:
                     occupancy[f"D{D}/S{S}/cluster{c}"] = \
                         lib.decode_attention_max_active_clusters(D, S, c)
     return {"src": src, "build_s": build_s, "decode": decode,
-            "flash": flash, "ssd": ssd, "max_active_clusters": occupancy,
+            "flash": flash, "ssd": ssd, "flash_tc": flash_tc,
+            "max_active_clusters": occupancy,
             "ptxas": {n: [ln.strip() for ln in log.splitlines()
                           if "registers" in ln or "spill" in ln
                           or "Function properties for" in ln]
@@ -260,10 +317,10 @@ def _rows(run: dict, kind: str) -> dict:
 
 def summarize(runs: dict) -> dict:
     """Means per checkout of each shape's ms, host ms and profiler ms, the
-    ratio this / other, and the call-weighted decode and SSD totals, over
-    the shapes both checkouts have a kernel for."""
-    out = {"decode": [], "flash": [], "ssd": []}
-    for kind in ("decode", "flash", "ssd"):
+    ratio this / other, and the call-weighted decode, SSD and bf16 flash
+    totals, over the shapes both checkouts have a kernel for."""
+    out = {kind: [] for kind in KERNELS}
+    for kind in KERNELS:
         by_tree = {tree: [_rows(r, kind) for r in runs[tree]]
                    for tree in ("other", "this")}
         for key, row in by_tree["this"][0].items():
@@ -272,13 +329,14 @@ def summarize(runs: dict) -> dict:
             entry = {"shape": row["shape"]}
             if kind != "flash":
                 entry["calls"] = row["calls"]
+                entry["records_per_call"] = {
+                    tree: [rows[key]["records_per_call"] for rows in t]
+                    for tree, t in by_tree.items()}
+            if kind in ("decode", "ssd"):
                 entry["cluster"] = row.get("cluster")
                 entry["max_active_clusters"] = row.get("max_active_clusters")
                 entry["this_ms_by_cluster"] = [
                     rows[key].get("ms_by_cluster") for rows in by_tree["this"]]
-                entry["records_per_call"] = {
-                    tree: [rows[key]["records_per_call"] for rows in t]
-                    for tree, t in by_tree.items()}
             for tree in ("other", "this"):
                 rs = [rows[key] for rows in by_tree[tree]]
                 entry[tree] = {m: [r[m] for r in rs]
@@ -287,7 +345,7 @@ def summarize(runs: dict) -> dict:
             entry["this_over_other"] = (entry["this"]["mean_ms"]
                                         / entry["other"]["mean_ms"])
             out[kind].append(entry)
-    for kind in ("decode", "ssd"):
+    for kind in ("decode", "ssd", "flash_tc"):
         weighted = [e for e in out[kind] if e["calls"]]
         if weighted:
             out[f"{kind}_weighted_ms"] = {
