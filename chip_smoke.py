@@ -57,7 +57,9 @@ exits non-zero:
    and 4 (head dim 64 at 16 heads on 16 and 14 on 2 for seamless-m4t-
    medium and internvl2-1b; 32 heads on 8 at head dim 160 for
    stablelm-12b, causal and windowed, and 128 for llama3-8b and
-   minitron-8b; decode at head dim 160 with each cluster size forced,
+   minitron-8b, and at both the pair kernel's edges (129, 257 and 1000
+   positions at B = 1 and 3, causal and windowed, and the model checks'
+   1024); decode at head dim 160 with each cluster size forced,
    over 1024 and 4096 slots, and over stablelm-12b's model check's 2048;
    flash in fp32 at its 1024-position prompt; decode also at B = 8 and
    at the serve phase's cache lengths; decode lengths of 0, 1, one
@@ -103,7 +105,8 @@ exits non-zero:
    printed.  The bf16 SSD also runs at 16 chunks over 6144
    blocks.  The blocks a SM that the footprint of the SSD's
    CUDA-core chunk scan allows (the occupancy calculator) are printed,
-   and must be two.
+   and must be two.  ptxas must report no spill in any instance of
+   flash's tensor-core kernels.
 3. **model** — per path, one prompt and 8 decode steps through the
    kernels against the same weights through the plain path: gemma3-1b
    1024 tokens (past its 512-token window, so the ring cache rolls),
@@ -189,12 +192,13 @@ exits non-zero:
    chunked RG-LRU scan), no other kernel may launch, and no wrapper may
    take its CPU route.  The launch counts (by route) are reset just
    before each path and read just after it; so are the SSD's and
-   decode's calls by shape, and after the last path each is timed at
-   every shape the paths called it with (the ``ssd_shapes`` and
-   ``decode_shapes`` phases; decode on both routes with
-   :data:`DECODE_VALID` valid rows, and each route's total over the
-   calls; ``calls_by_shape`` in the ``ssd_scan`` and
-   ``decode_attention`` rows).
+   decode's and flash's calls by shape, and after the last path each is
+   timed at every shape the paths called it with (the ``ssd_shapes``,
+   ``decode_shapes`` and ``flash_shapes`` phases; decode on both routes
+   with :data:`DECODE_VALID` valid rows, and each route's total over the
+   calls; decode and flash beside one SDPA call at each shape, and the
+   totals of both over the calls by head dim; ``calls_by_shape`` in the
+   ``ssd_scan``, ``decode_attention`` and ``flash_attention`` rows).
 6. **micro** — per micro model: the card's step against the CPU plain
    step on the same weights (fp32, 2e-5), a trace of one runner step at
    b = 1 and 256 (attn-tiny also at its rungs S = 8 and 4), then the
@@ -253,7 +257,10 @@ exits non-zero:
      and the whole step (wall, device busy, idle share, launches, top
      kernels).
 
-Then the card's name and power limit, the ``{"kernels": [...]}`` line
+Each phase prints one JSON line (the model, trace and serve lines with
+the ``seconds`` they took), each with ``elapsed_s``, the seconds since the
+script started.  Then the card's name and power limit, the
+``{"kernels": [...]}`` line
 (one row per route of each kernel, and the CUDA-core decode again at
 lm-tiny's shape; ``launches_by_path`` includes ``lm-tiny`` and
 ``train-eval``) and,
@@ -439,7 +446,15 @@ KERNEL_ROWS = (
 )
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries the seconds since
+    the script started (``elapsed_s``), so the run's time splits by
+    phase."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -537,12 +552,14 @@ def main(argv=None) -> int:
     for row in rows:
         if row["name"] == "ssd_scan":
             row["calls_by_shape"] = ssd_shapes
-        if row["name"] == "decode_attention":
-            row["calls_by_shape"] = decode_shapes["rows"]
-            row["calls_weighted_ms"] = decode_shapes["weighted_ms"]
-        if row["name"] == "flash_attention":
-            row["calls_by_shape"] = flash_shapes["rows"]
-            row["calls_weighted_ms"] = flash_shapes["weighted_ms"]
+        for name, shapes in (("decode_attention", decode_shapes),
+                             ("flash_attention", flash_shapes)):
+            if row["name"] == name:
+                row["calls_by_shape"] = shapes["rows"]
+                row["calls_weighted_ms"] = shapes["weighted_ms"]
+                row["calls_library_weighted_ms"] = \
+                    shapes["library_weighted_ms"]
+                row["calls_by_head_dim"] = shapes["by_head_dim"]
     emit({"kernels": rows})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -812,17 +829,58 @@ def ssd_calls_by_shape(torch, calls) -> list:
     return rows
 
 
+def _sdpa(torch, q, k, v, causal: bool, window: int = 0):
+    """One ``scaled_dot_product_attention`` call computing what the
+    kernels compute on q (B, Sq, H, D) and k/v (B, Sk, Hkv, D), positions
+    from 0 on both: the library yardstick (``library_ms``), never called
+    by the port.  The layouts and the heads repeated for GQA are made here,
+    outside the call."""
+    import torch.nn.functional as F
+    H, Hkv = q.shape[2], k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
+    vt = torch.repeat_interleave(v, H // Hkv, 2).transpose(1, 2)
+    if window:
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        j = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = (j <= i) & (j > i - window)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+
+def _by_head_dim(rows) -> dict:
+    """Calls-weighted totals of the kernel's and the library's ms by head
+    dim, and their ratio."""
+    by_dim = {}
+    for x in rows:
+        d = by_dim.setdefault(str(x["shape"]["D"]),
+                              {"calls": 0, "weighted_ms": 0.0,
+                               "library_weighted_ms": 0.0,
+                               "calls_x_excess_ms": 0.0})
+        d["calls"] += x["calls"]
+        d["weighted_ms"] += x["calls"] * x["ms"]
+        d["library_weighted_ms"] += x["calls"] * x["library_ms"]
+        d["calls_x_excess_ms"] += x["calls_x_excess_ms"]
+    for d in by_dim.values():
+        d["over_library"] = d["weighted_ms"] / d["library_weighted_ms"]
+    return by_dim
+
+
 def decode_calls_by_shape(torch, calls) -> dict:
     """Decode timed at each shape the serving paths called it with
     (``calls``: the wrapper's (dtype, B, S, H, Hkv, D) -> calls), with
     :data:`DECODE_VALID` valid rows (at most S) as the serve phase leaves
-    them: each route forced (device ms, host ms), the bound, and the
-    calls times the excess of the route the shape takes; then each
-    route's total over the calls (``weighted_ms``)."""
+    them: each route forced (device ms, host ms), the bound, one SDPA call
+    over the valid rows (``library_ms``), and the calls times the excess
+    of the route the shape takes; then each route's total over the calls
+    (``weighted_ms``), and the totals and SDPA's by head dim
+    (``library_s``: the seconds the SDPA timings took)."""
     from repro_torch.kernels import decode_attention as decode_mod
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
+    rows, library_s = [], 0.0
     for (dt, B, S, H, Hkv, D), n in sorted(calls.items()):
         dtype = getattr(torch, dt)
         q, kc, vc = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -843,6 +901,11 @@ def decode_calls_by_shape(torch, calls) -> dict:
         bound_ms, bound_by = _bound(
             elem * (2 * B * H * D + 2 * Hkv * D * B * valid) + 4 * B,
             4.0 * D * H * B * valid, dt)
+        t0 = time.perf_counter()
+        library = time_ms(torch, _sdpa(torch, q, kc[:, :valid],
+                                       vc[:, :valid], causal=False),
+                          iters=50)
+        library_s += time.perf_counter() - t0
         rows.append({"shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
                                "valid": valid},
                      "dtype": dt, "route": rule, "calls": n,
@@ -850,6 +913,7 @@ def decode_calls_by_shape(torch, calls) -> dict:
                                  if rule == "tensor_core" else None),
                      "routes": routes, "ms": routes[rule]["ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library["ms"],
                      "calls_x_excess_ms": n * (routes[rule]["ms"]
                                                - bound_ms)})
         del q, kc, vc
@@ -857,6 +921,9 @@ def decode_calls_by_shape(torch, calls) -> dict:
                        if r in x["routes"])
                 for r in ("tensor_core", "cuda_core")}
     return {"rows": rows, "weighted_ms": weighted,
+            "library_weighted_ms": sum(x["calls"] * x["library_ms"]
+                                       for x in rows),
+            "by_head_dim": _by_head_dim(rows), "library_s": library_s,
             "calls": sum(x["calls"] for x in rows)}
 
 
@@ -865,13 +932,14 @@ def flash_calls_by_shape(torch, calls) -> dict:
     (``calls``: the wrapper's (dtype, B, Sq, Sk, H, Hkv, D, window) ->
     calls; every serving call is causal), on fresh inputs, on the route
     each shape takes (forced, so the time is the kernel's alone): device
-    ms, host ms, the bound and the calls times the excess over it; then
-    the total over the calls (``weighted_ms``) and that total and the
-    excess by head dim."""
+    ms, host ms, the bound, one SDPA call (``library_ms``) and the calls
+    times the excess over the bound; then the total over the calls
+    (``weighted_ms``) and SDPA's, and those totals and the excess by head
+    dim (``library_s``: the seconds the SDPA timings took)."""
     from repro_torch.kernels import flash_attention as flash_mod
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
+    rows, library_s = [], 0.0
     for (dt, B, Sq, Sk, H, Hkv, D, window), n in sorted(calls.items()):
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -883,26 +951,25 @@ def flash_calls_by_shape(torch, calls) -> dict:
         bound_ms, bound_by = _bound(
             q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D),
             4.0 * D * B * H * _visible_pairs(Sq, window, Sk), dt)
+        t0 = time.perf_counter()
+        library = time_ms(torch, _sdpa(torch, q, k, v, causal=True,
+                                       window=window), iters=20)
+        library_s += time.perf_counter() - t0
         rows.append({"shape": {"B": B, "Sq": Sq, "Sk": Sk, "H": H,
                                "Hkv": Hkv, "D": D, "window": window},
                      "dtype": dt, "route": rule, "calls": n,
                      "ms": t["ms"], "host_ms": t["host_ms"],
                      "covered": t["covered"], "bound_ms": bound_ms,
-                     "bound_by": bound_by,
+                     "bound_by": bound_by, "library_ms": library["ms"],
                      "calls_x_excess_ms": n * (t["ms"] - bound_ms)})
         del q, k, v
-    by_dim = {}
-    for x in rows:
-        d = by_dim.setdefault(str(x["shape"]["D"]),
-                              {"calls": 0, "weighted_ms": 0.0,
-                               "calls_x_excess_ms": 0.0})
-        d["calls"] += x["calls"]
-        d["weighted_ms"] += x["calls"] * x["ms"]
-        d["calls_x_excess_ms"] += x["calls_x_excess_ms"]
     return {"rows": rows,
             "weighted_ms": sum(x["calls"] * x["ms"] for x in rows),
+            "library_weighted_ms": sum(x["calls"] * x["library_ms"]
+                                       for x in rows),
             "calls_x_excess_ms": sum(x["calls_x_excess_ms"] for x in rows),
-            "calls": sum(x["calls"] for x in rows), "by_head_dim": by_dim}
+            "calls": sum(x["calls"] for x in rows),
+            "by_head_dim": _by_head_dim(rows), "library_s": library_s}
 
 
 def _bound(bytes_moved: float, flops, dtype_name: str):
@@ -1088,16 +1155,18 @@ def phase_kernels(torch):
             for D in (16, 32, 128, 160):
                 flash.append((dt, 2, 100, 14, 2, D, 48, 32))
                 flash.append((dt, 2, 100, 16, 1, D, 0, 32))
-            # head dim 160's 128-row blocks (a 64-row tile a warpgroup):
-            # one row into a block (129), one row past two (257), inside a
-            # group's tile (1000), causal and windowed, at B = 1 and 3;
-            # and stablelm-12b's model check prompt (1024 positions)
-            for B in (1, 3):
-                for S in (129, 257, 1000):
-                    for window in (0, 100):
-                        flash.append((dt, B, S, *DENSE_HEADS, 160, window,
-                                      512))
-            flash.append((dt, 1, 1024, *DENSE_HEADS, 160, 0, 512))
+            # the pair kernel's 128-row blocks (a 64-row tile a
+            # warpgroup) at head dims 128 and 160: one row into a block
+            # (129), one row past two (257), inside a group's tile (1000),
+            # causal and windowed, at B = 1 and 3; and the dense paths'
+            # model check prompt (1024 positions)
+            for D in (128, 160):
+                for B in (1, 3):
+                    for S in (129, 257, 1000):
+                        for window in (0, 100):
+                            flash.append((dt, B, S, *DENSE_HEADS, D, window,
+                                          512))
+                flash.append((dt, 1, 1024, *DENSE_HEADS, D, 0, 512))
     # attn-tiny (the micro path): fp32, 2 heads of 16, its rungs' S = 16,
     # 8 and 4 (on the card unpadded: the short route), at B = 1, 16, 256
     heads, hd = ATTN_TINY_HD
@@ -1144,21 +1213,7 @@ def phase_kernels(torch):
         if D == 256 or tiny or (D == 64 and (H, Hkv) in D64_SERVING) or (
                 D == 160 and S == 512 and not window) or (
                 D == 128 and S == 512 and dt == "bfloat16"):
-            qt = q.transpose(1, 2)
-            kt = torch.repeat_interleave(k, H // Hkv, 2).transpose(1, 2)
-            vt = torch.repeat_interleave(v, H // Hkv, 2).transpose(1, 2)
-            if window:
-                i = torch.arange(S, device=dev)
-                mask = (i[None, :] <= i[:, None]) & \
-                    (i[None, :] > i[:, None] - window)
-
-                def lib():
-                    F.scaled_dot_product_attention(qt, kt, vt,
-                                                   attn_mask=mask)
-            else:
-                def lib():
-                    F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True)
+            lib = _sdpa(torch, q, k, v, causal=True, window=window)
             elem = q.element_size()
             flops = 4.0 * D * B * H * _visible_pairs(S, window)
             nbytes = elem * (2 * B * S * H * D + 2 * B * S * Hkv * D)
@@ -1567,18 +1622,21 @@ def phase_kernels(torch):
         for D in (64, 128, 160, 256) for S in (512, 1024, 4096)
         for c in decode_mod.CLUSTERS}
 
-    # head dim 160's pair kernel holds O (80 registers a thread), S and P
-    # at once: ptxas must fit it without a spill (where this process
-    # built the library, so that ptxas's lines are at hand)
+    # the tensor-core kernels hold O (up to 128 registers a thread at
+    # D = 256; the pair kernel 64 at D = 128 and 80 at 160 under its cap
+    # of 168), S and P at once: ptxas must fit each instance without a
+    # spill (where this process built the library, so that ptxas's lines
+    # are at hand)
     if "flash_attention" in build.build_log:
-        pair = ptxas_of(build.build_log["flash_attention"],
-                        "flash_tc_pair_kernel")
-        cases.append({"kernel": "flash_attention", "dtype": "bfloat16",
-                      "check": "flash_tc_pair_kernel compiled, no spill",
-                      "ptxas": pair,
-                      "ok": bool(pair) and all(
-                          " 0 bytes spill stores, 0 bytes spill loads" in ln
-                          for ln in pair if "spill" in ln)})
+        for entry in ("flash_tc_pair_kernelILi128E",
+                      "flash_tc_pair_kernelILi160E", "flash_tc_kernel"):
+            lines = ptxas_of(build.build_log["flash_attention"], entry)
+            cases.append({
+                "kernel": "flash_attention", "dtype": "bfloat16",
+                "check": f"{entry} compiled, no spill", "ptxas": lines,
+                "ok": bool(lines) and all(
+                    " 0 bytes spill stores, 0 bytes spill loads" in ln
+                    for ln in lines if "spill" in ln)})
 
     failed = [c for c in cases if not c["ok"]]
     # headline: the serving phase's largest cells in the dtype its calls

@@ -9,11 +9,12 @@
 //
 // Design, the two tiled routes.  One block per (Q tile, head, batch):
 // 64 rows on the tensor cores, 32 on the CUDA cores (two blocks a tile
-// there); at D = 160 on the tensor cores one persistent block a SM walks
-// tiles of 128 rows.  The TPU kernel carries m/l/acc in VMEM scratch
-// across a sequential KV grid axis; here a loop inside the block walks
-// the KV tiles instead, and it visits only the tiles that the causal and
-// window masks leave visible, so masked work is skipped as on the TPU.
+// there); at D = 128 and 160 on the tensor cores one persistent block a
+// SM walks tiles of 128 rows.  The TPU kernel carries m/l/acc in VMEM
+// scratch across a sequential KV grid axis; here a loop inside the block
+// walks the KV tiles instead, and it visits only the tiles that the
+// causal and window masks leave visible, so masked work is skipped as on
+// the TPU.
 // Masking uses the finite constant -0.7 * FLT_MAX of the TPU kernel: a
 // row whose first visible tile is fully masked for it accumulates
 // exp(0) = 1 terms that the first real score wipes out with
@@ -80,8 +81,8 @@
 // Hopper's own parts (hopper.cuh) so the chain runs on the tensor cores
 // with nothing else in its way.  Two kernels, each of two consumer
 // warpgroups.
-// `flash_tc_kernel` (every D but 160): the groups take alternate KV
-// tiles against the same 64-row Q tile (wgmma's M):
+// `flash_tc_kernel` (D = 16, 32, 64 and 256): the groups take alternate
+// KV tiles against the same 64-row Q tile (wgmma's M):
 //   * loads: one thread loads the Q tile once, and one thread of each
 //     warpgroup keeps that group's ring of three K/V stages full by TMA
 //     (4-d tensor maps, one box of 64 KV rows, 32 at D = 256, per 64
@@ -93,8 +94,8 @@
 //     third warpgroup) whatever setmaxnreg grants later, and at D = 256
 //     it then spilled and serialised the products; with two warpgroups a
 //     thread may hold up to 255, and ptxas uses 182 at D = 256 (O alone
-//     is 128 a thread), 138 at D = 128 and 82-109 up to D = 64, with no
-//     spill at any head dim;
+//     is 128 a thread) and 82-109 up to D = 64, with no spill at any
+//     head dim;
 //   * products: S = Q K^T by wgmma with both operands K-major in shared
 //     memory, O += P V by wgmma with P from registers (the accumulator
 //     rounded to bf16 in pairs) and V MN-major.  Step n issues S_n and
@@ -104,27 +105,35 @@
 //     the tensor cores during this one's softmax.  At the end group 1
 //     hands its (m, l, O) to group 0 through the idle rings and group 0
 //     merges the two online softmaxes and writes O.
-// `flash_tc_pair_kernel` (D = 160, stablelm-12b's prefill: 32 heads on 8).
-// Fitted to `flash_tc_kernel`, 160 columns meant five 32-column blocks,
-// two rings of 32-row KV tiles (141 KB, one block a SM), twenty small
-// wgmma a tile and the online softmax's rescale of O every 32 keys; it ran
-// at 4.7x its bound and 1.5x SDPA.  So a query tile is a pair of 64-row
+// `flash_tc_pair_kernel` (D = 160, stablelm-12b's prefill, and D = 128,
+// llama3-8b's and minitron-8b's: 32 heads on 8).  Fitted to
+// `flash_tc_kernel`, 160 columns meant five 32-column blocks, two rings
+// of 32-row KV tiles (141 KB, one block a SM), twenty small wgmma a tile
+// and the online softmax's rescale of O every 32 keys; it ran at 4.7x its
+// bound and 1.5x SDPA.  At D = 128 it ran at 4.4x its bound and 1.6x
+// SDPA: each K/V tile fed only 64 query rows, a consumer thread issued
+// its group's copies, the groups took no turns, and its softmax kept
+// exp2f and a predicated mask.  So a query tile is a pair of 64-row
 // tiles, one a warpgroup, and both groups walk the same KV tiles:
-//   * one ring of three stages of 64 KV rows (40 KB of K and V a stage),
-//     each tile read from shared memory by both groups' products; each
-//     group computes only on the run of the tiles its own rows see (under
-//     causal masking group 0 skips the last, with a window group 1 skips
-//     the first), still releasing the others.  No state is merged: each
+//   * one ring of 64 KV rows a stage, three stages at D = 160 (40 KB of
+//     K and V a stage), four at D = 128 (32 KB), each tile read from
+//     shared memory by both groups' products; each group computes only
+//     on the run of the tiles its own rows see (under causal masking
+//     group 0 skips the last, with a window group 1 skips the first),
+//     still releasing the others.  No state is merged: each
 //     group writes its 64 rows;
-//   * S = Q K^T is ten wgmma m64n64k16 a tile (32-column boxes, 64-byte
-//     swizzled); P V is one wgmma m64n160k16 a 16-key step over V's five
-//     boxes (MN-major, the descriptor's LBO one box), four a tile in place
-//     of twenty m64n32k16; O is rescaled every 64 keys;
+//   * S = Q K^T is D / 16 wgmma m64n64k16 a tile; P V is one wgmma a
+//     16-key step over all of V's boxes (MN-major, the descriptor's LBO
+//     one box): m64n160k16 over five 32-column boxes (64-byte swizzled)
+//     at D = 160, four a tile in place of twenty m64n32k16, and
+//     m64n128k16 over two 64-column boxes (128-byte swizzled) at D = 128;
+//     O is rescaled every 64 keys;
 //   * a producer warp issues every TMA copy (Q, then the ring's tiles,
 //     each once all eight consumer warps have arrived on its stage's empty
 //     barrier): a consumer thread issuing a stage's ten copies held up its
 //     warpgroup's next products.  Beside two warpgroups it caps ptxas at
-//     168 registers a thread; the kernel needs 168 without a spill;
+//     168 registers a thread; the kernel needs 168 at D = 160 and 167 at
+//     D = 128 without a spill;
 //   * the groups take turns at the tensor cores (two named barriers): a
 //     group issues S_r and P_{r-1} V_{r-1}, passes the turn, and runs the
 //     softmax of S_r while the other group's products run; both groups
@@ -143,12 +152,12 @@
 //     its Q tile in the boxes' swizzle and one thread stores the boxes by
 //     TMA, where scattered 4-byte stores from registers held the block's
 //     end;
-//   * persistent: one block a SM (Q double-buffered, 205 KB) walks query
-//     tiles heaviest first in a zig-zag (block i takes tiles i,
-//     2G - 1 - i, 2G + i, ...), so the next tile's Q and KV tiles land
-//     while this one computes, group 0 starts it while group 1 stores, and
-//     a block that took a heavy tile takes a light one next; the ring and
-//     the turns run on across tiles.
+//   * persistent: one block a SM (Q double-buffered; 205 KB at D = 160,
+//     198 KB at 128) walks query tiles heaviest first in a zig-zag
+//     (block i takes tiles i, 2G - 1 - i, 2G + i, ...), so the next
+//     tile's Q and KV tiles land while this one computes, group 0 starts
+//     it while group 1 stores, and a block that took a heavy tile takes a
+//     light one next; the ring and the turns run on across tiles.
 // Both kernels keep the numbers of the mma.sync kernel they replaced:
 // the log2-domain softmax on the fp32 accumulator (row max and sum across
 // the 4 lanes of a row by two shuffles), P rounded to bf16, the mask
@@ -991,17 +1000,22 @@ constexpr int kPairConsumerWarps = kTcThreads / 32;
 template <int D_>
 struct TcPair {
   static constexpr int D = D_;
+  // 128 KV rows at D = 128 spilled 364 bytes and took 1.6x as long
+  // (tools/flash_pair_probe.py's kv128: S and P of 128 keys beside O)
   static constexpr int BKV = 64;                  // KV rows a tile
-  // columns a box: 32 (64-byte swizzle), five boxes at D = 160; P V reads
-  // them all in one wgmma, LBO a box apart
-  static constexpr int W = 32;
+  // columns a box: 32 (64-byte swizzle), five boxes at D = 160; 64
+  // (128-byte swizzle), two boxes at D = 128, 1-3% faster there than
+  // four of 32 (the probe's box64); P V reads them all in one wgmma, LBO
+  // a box apart
+  static constexpr int W = D == 128 ? 64 : 32;
   static constexpr int NB = D / W;
   static_assert(NB * W == D && D <= 256, "every column in a box; N <= 256");
   static constexpr int SW = 2 * W;                // swizzle bytes
-  static_assert(SW == 64, "the epilogue writes O in the 64-byte swizzle");
-  // K/V stages of the ring (two measured 30% slower at B = 4, S = 512 in
-  // tools/flash_pair_probe.py; four do not fit beside the two Q buffers)
-  static constexpr int STAGES = 3;
+  // K/V stages of the ring: at D = 160 three (two measured 30% slower at
+  // B = 4, S = 512 in tools/flash_pair_probe.py; four do not fit beside
+  // the two Q buffers); at D = 128 four, which fit and were 1-3.5%
+  // faster than three
+  static constexpr int STAGES = D == 128 ? 4 : 3;
   static constexpr int QG_BYTES = kTcBQ * D * 2;  // one group's Q (then O)
   static constexpr int Q_BYTES = 2 * QG_BYTES;    // a query tile's Q
   static constexpr int KV_BYTES = BKV * D * 2;    // one K or V tile
@@ -1360,8 +1374,8 @@ flash_tc_pair_kernel(const __grid_constant__ CUtensorMap tm_q,
     jg0 += n_vis;
 
     // O / l in bf16 into this group's Q tile (its products are done), in
-    // the 64-byte swizzle of the boxes; then one thread stores each box by
-    // TMA (rows past Sq are not written) and, once the store has read the
+    // the swizzle of the boxes; then one thread stores each box by TMA
+    // (rows past Sq are not written) and, once the store has read the
     // buffer, hands it back to the producer.  No state to merge.
     if (g_lo < Sq) {
 #pragma unroll
@@ -1371,12 +1385,15 @@ flash_tc_pair_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       const float inv[2] = {1.f / fmaxf(l[0], 1e-30f),
                             1.f / fmaxf(l[1], 1e-30f)};
+      constexpr int CPB = T::W / 8;          // 16-byte chunks a box row
       const int ra = 16 * w + g;             // row a within the tile
-      const int sw = (ra >> 1) & 3;          // its chunks' swizzle, a + 8's
+      // its chunks' swizzle (hopper.cuh's o ^ ((o >> 3) & (SW - 16)) on
+      // the row's offset), the same for row a + 8
+      const int sw = ((ra * T::SW) >> 7) & (CPB - 1);
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) {
-        unsigned char* p = qg + (c / 4) * kTcBQ * T::SW + ra * T::SW +
-                           (((c % 4) ^ sw) << 4) + 4 * t;
+        unsigned char* p = qg + (c / CPB) * kTcBQ * T::SW + ra * T::SW +
+                           (((c % CPB) ^ sw) << 4) + 4 * t;
         *reinterpret_cast<uint32_t*>(p) =
             mma::pack_bf16(acc[4 * c] * inv[0], acc[4 * c + 1] * inv[0]);
         *reinterpret_cast<uint32_t*>(p + 8 * T::SW) =
@@ -1545,7 +1562,7 @@ int dispatch_tc(int D, const void* q, const void* k, const void* v, void* o,
     case 16: return launch_tc<16>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 32: return launch_tc<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 64: return launch_tc<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
-    case 128: return launch_tc<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
+    case 128: return launch_tc_pair<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 160: return launch_tc_pair<160>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     case 256: return launch_tc<256>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, s);
     default: return -1;

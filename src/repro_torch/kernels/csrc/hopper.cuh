@@ -31,10 +31,10 @@
 // 8-row groups are 16W bytes apart (SBO).  MN-major operand (its rows run
 // along K, M or N along the row; one block of W columns per instruction):
 // k-step kk starts 16 rows = 32W bytes further, SBO again 16W; where one
-// instruction spans several MN blocks (flash's P V at head dim 160: five
-// 32-column blocks), the leading offset (LBO) is the distance from one
-// block to the next.  A K-major operand never reads LBO here: its K
-// extent (16) never passes a swizzle row.
+// instruction spans several MN blocks (flash's P V: five 32-column
+// blocks at head dim 160, two 64-column ones at 128), the leading offset
+// (LBO) is the distance from one block to the next.  A K-major operand
+// never reads LBO here: its K extent (16) never passes a swizzle row.
 
 #pragma once
 
@@ -124,15 +124,15 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
 }
 
 // d (+)= A B, A from registers (mma.sync's A fragment per warp), B from
-// shared memory; TB: 0 K-major, 1 MN-major.  N = 160 is flash's P V at
-// head dim 160 in one instruction: B MN-major over five 32-column
-// swizzle atoms, LBO apart.
+// shared memory; TB: 0 K-major, 1 MN-major.  N = 128 and 160 are flash's
+// P V at head dims 128 and 160 in one instruction: B MN-major over two
+// 64-column or five 32-column swizzle atoms, LBO apart.
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 160,
-                "wgmma_rs: N is 16, 32, 64 or 160");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 160,
+                "wgmma_rs: N is 16, 32, 64, 128 or 160");
   if constexpr (N == 16) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -164,6 +164,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
         "%24, %25, %26, %27, %28, %29, %30, %31"
         "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : D8(0), D8(8), D8(16), D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(TB));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
           "r"(accumulate), "n"(TB));
   }

@@ -282,18 +282,20 @@ def test_cuda_flash_tensor_core_head_dims_groups_windows(cuda, D, H, Hkv,
                                              window=window))
 
 
-# head dim 160's pair kernel: 128-row blocks (a 64-row tile a
-# warpgroup) at stablelm-12b's 32 heads on 8, at lengths one row into a
-# block (129), one past two (257) and inside a group's tile (1000),
-# causal and windowed, at B = 1 and 3; and its model check's prompt
+# the pair kernel (head dims 160 and 128): 128-row blocks (a 64-row tile
+# a warpgroup) at the dense paths' 32 heads on 8 (stablelm-12b at 160,
+# llama3-8b and minitron-8b at 128), at lengths one row into a block
+# (129), one past two (257) and inside a group's tile (1000), causal and
+# windowed, at B = 1 and 3; and their model checks' prompt
+@pytest.mark.parametrize("D", [128, 160])
 @pytest.mark.parametrize("B,S,window", [
     (B, S, window) for B in (1, 3) for S in (129, 257, 1000)
     for window in (0, 100)] + [(1, 1024, 0)])
-def test_cuda_flash_tensor_core_head_dim_160_pairs(cuda, B, S, window):
+def test_cuda_flash_tensor_core_head_dim_160_pairs(cuda, B, S, window, D):
     from repro_torch.kernels import flash_attention as flash_mod
-    H, Hkv, D = 32, 8, 160
+    H, Hkv = 32, 8
     q, k, v = (_t(x, "bfloat16").to(cuda) for x in _inputs(
-        S + B + window, (B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+        S + B + window + D, (B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     stats = KERNEL_STATS["flash_attention"]
     before = stats.launches_by_route.get("tensor_core", 0)

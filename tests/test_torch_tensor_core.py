@@ -36,7 +36,9 @@ The kernels themselves run only on a card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
 """
 
+import importlib.util
 import itertools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -55,6 +57,7 @@ from test_torch_ssm import _as, _ssd_inputs  # noqa: E402
 jax.config.update("jax_enable_x64", False)
 
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # tests/test_kernels.py's bf16
+ROOT_SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -640,17 +643,23 @@ def test_ssd_cluster_exchange_meets_the_references_at_mamba2_130m(B,
 # of PAIR_HEAD_DIMS, a pair of such tiles, one a warpgroup, sharing one
 # K/V ring (flash_tc_pair_kernel)
 TC_BLOCK_Q = 64
-PAIR_HEAD_DIMS = (160,)
-TC_STAGES = 3       # K/V stages of a ring
+PAIR_HEAD_DIMS = (128, 160)
+
+
+def _tc_stages(head_dim):
+    """K/V stages of a ring: ``TcPair<D>::STAGES``, four at head dim 128
+    and three at 160 (four do not fit beside its two Q buffers);
+    ``kTcStages``, three, in each warpgroup's ring elsewhere."""
+    return 4 if head_dim == 128 else 3
 
 
 def _tc_block_rows(head_dim):
-    """Query rows a block: 128 at head dim 160, else 64."""
+    """Query rows a block: 128 at the pair kernel's head dims, else 64."""
     return 2 * TC_BLOCK_Q if head_dim in PAIR_HEAD_DIMS else TC_BLOCK_Q
 
 
 def _tc_block_kv(head_dim):
-    """KV rows a tile: ``TcPair<D>::BKV``, 64, at head dim 160;
+    """KV rows a tile: ``TcPair<D>::BKV``, 64, at head dims 128 and 160;
     ``TcTile<D>::BKV`` elsewhere: 64, and 32 at 256, where the two
     warpgroups' six 64-row stages would not fit an SM."""
     if head_dim in PAIR_HEAD_DIMS:
@@ -660,16 +669,17 @@ def _tc_block_kv(head_dim):
 
 def _tc_column_block(head_dim):
     """Columns of one TMA box (``W``): 32 at head dim 160 (five boxes,
-    64-byte swizzled), else 64 where they divide D, else D (16, 32)."""
-    if head_dim in PAIR_HEAD_DIMS:
+    64-byte swizzled), else 64 where they divide D (two 128-byte swizzled
+    boxes in the pair kernel at 128), else D (16, 32)."""
+    if head_dim == 160:
         return 32
     return 64 if head_dim % 64 == 0 else head_dim
 
 
 def _tc_pv_widths(head_dim):
     """The N of each P V ``wgmma`` a 16-key step: one over every column
-    at head dim 160 (B spans the boxes, LBO a box apart), else one a
-    column box."""
+    at the pair kernel's head dims (B spans the boxes, LBO a box apart),
+    else one a column box."""
     if head_dim in PAIR_HEAD_DIMS:
         return [head_dim]
     W = _tc_column_block(head_dim)
@@ -681,11 +691,12 @@ def _tc_smem_bytes(head_dim):
     tiles, the K/V stages, the barriers (Q's and each stage's)."""
     q = _tc_block_rows(head_dim) * head_dim * 2
     stage = 2 * _tc_block_kv(head_dim) * head_dim * 2
+    st = _tc_stages(head_dim)
     if head_dim in PAIR_HEAD_DIMS:
         # two query tiles' Q (one in use, the next landing), the ring, a
         # full and an empty barrier a Q buffer and a stage
-        return 1024 + 2 * q + TC_STAGES * stage + 8 * (4 + 2 * TC_STAGES)
-    return 1024 + q + 2 * TC_STAGES * stage + 8 * (1 + 2 * TC_STAGES)
+        return 1024 + 2 * q + st * stage + 8 * (4 + 2 * st)
+    return 1024 + q + 2 * st * stage + 8 * (1 + 2 * st)
 
 
 @pytest.mark.parametrize("D", build.TENSOR_CORE_HEAD_DIMS)
@@ -732,8 +743,8 @@ def _tc_tiles(sq, sk, causal, window, head_dim):
     warpgroup its rows and the tiles it computes on.  ``flash_tc_kernel``
     (64-row blocks): both groups own the block's rows and take alternate
     tiles (0, 1, 0, ...), merging at the end.  ``flash_tc_pair_kernel``
-    (head dim 160, 128-row blocks): group g owns rows 64g..64g + 63 and
-    computes on the run of the ring's tiles its own rows see."""
+    (head dims 128 and 160, 128-row blocks): group g owns rows 64g..64g +
+    63 and computes on the run of the ring's tiles its own rows see."""
     bkv, rows = _tc_block_kv(head_dim), _tc_block_rows(head_dim)
     blocks = []
     for q_lo in range(0, sq, rows):
@@ -763,7 +774,7 @@ def _visible(q, k, causal, window):
     return (not causal or k <= q) and (window == 0 or k > q - window)
 
 
-@pytest.mark.parametrize("D", [64, 160, 256])  # 64-, 64-, 32-row KV tiles
+@pytest.mark.parametrize("D", [64, 128, 160, 256])  # KV tiles of 64 but 32
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [0, 16, 100])
 @pytest.mark.parametrize("S", [1, 33, 64, 100, 129, 257])
@@ -778,7 +789,7 @@ def test_flash_tc_schedule_covers_each_visible_pair_once(S, window, causal,
     are 128 rows."""
     BKV = _tc_block_kv(D)
     blocks = _tc_tiles(S, S, causal, window, D)
-    assert len(blocks) == -(-S // (128 if D == 160 else 64))
+    assert len(blocks) == -(-S // _tc_block_rows(D))
     for blk in blocks:
         ring = blk["ring"]
         assert ring == list(range(ring[0], ring[0] + len(ring)))  # once each
@@ -834,7 +845,7 @@ def _tc_pair_items(sq, heads, batch, causal, sms=H100_SMS):
     return blocks
 
 
-def _ring_run(blks, rng):
+def _ring_run(blks, rng, st):
     """One persistent block of the pair kernel (its query tiles ``blks``,
     from ``_tc_tiles``, in its order) under one random interleaving of its
     producer and two warpgroups, step by step as the kernel's code orders
@@ -851,8 +862,8 @@ def _ring_run(blks, rng):
     then releases tile r - 1; after its rounds it stores O and hands its Q
     buffer back.  Returns the tiles each group read in order and the
     order of the rounds' issues; raises on a deadlock, a wait that passes
-    on the wrong tile or Q, or a load over a tile or Q still in use."""
-    st = TC_STAGES
+    on the wrong tile or Q, or a load over a tile or Q still in use.
+    ``st``: the ring's stages."""
     full, empty = [0] * st, [0] * st       # phases completed
     qfull, qempty = [0, 0], [0, 0]
     holds, qholds = [None] * st, [None, None]
@@ -956,10 +967,11 @@ def _ring_run(blks, rng):
     return read, issues
 
 
+@pytest.mark.parametrize("D", PAIR_HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [0, 16, 100])
 @pytest.mark.parametrize("S", [1, 64, 100, 129, 257, 1000])
-def test_flash_tc_pair_ring_never_deadlocks(S, window, causal):
+def test_flash_tc_pair_ring_never_deadlocks(S, window, causal, D):
     """Under many random interleavings of the producer and the two
     warpgroups, a persistent block of the pair kernel walking several
     query tiles (S's tiles of 2 heads, few SMs, so a block holds up to 8)
@@ -967,19 +979,53 @@ def test_flash_tc_pair_ring_never_deadlocks(S, window, causal):
     refills a stage or a Q buffer still in use, never lets a wait pass on
     the wrong tile or Q, hands each group exactly its runs, and the groups
     issue their products in alternate turns, group 0 first, every turn
-    waited for passed once."""
-    rng = np.random.default_rng(S + window)
-    tiles = _tc_tiles(S, S, causal, window, 160)
+    waited for passed once; with the ring's stages at each head dim."""
+    rng = np.random.default_rng(S + window + D)
+    tiles = _tc_tiles(S, S, causal, window, D)
     for walk in _tc_pair_items(S, 2, 1, causal, sms=3):
         blks = [tiles[qt] for qt, _, _ in walk]
         for _ in range(10):
-            read, issues = _ring_run(blks, rng)
+            read, issues = _ring_run(blks, rng, _tc_stages(D))
             for g in (0, 1):
                 assert read[g] == [kt for blk in blks
                                    for kt in blk["groups"][g][1]]
             assert issues == [(g, (n, r)) for n, blk in enumerate(blks)
                               for r in range(len(blk["ring"]) + 1)
                               for g in (0, 1)]
+
+
+def _pair_probe():
+    """``tools/flash_pair_probe.py`` as a module (it imports neither torch
+    nor JAX at its top)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "flash_pair_probe.py"
+    spec = importlib.util.spec_from_file_location("flash_pair_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("D", PAIR_HEAD_DIMS)
+@pytest.mark.parametrize("variant", _pair_probe().VARIANTS)
+def test_flash_pair_probe_variants_find_the_kernel(variant, D):
+    """Each variant of the pair kernel's probe finds every anchor of its
+    edits in the kernel's sources exactly once at both head dims (the
+    probe follows the code), changes them (``base`` changes nothing), and
+    a variant that sets one of ``TcPair``'s constants sets it at that head
+    dim alone."""
+    probe = _pair_probe()
+    edits = probe.variants(D)[variant]
+    texts = probe.edited(variant, edits, ROOT_SRC)
+    assert (variant == "base") == (not edits)
+    for rel, text in texts.items():
+        assert text != (ROOT_SRC / rel).read_text()
+    for name, const in (("stages", "STAGES"), ("box", "W"),
+                        ("kv128", "BKV")):
+        if variant.startswith(name):
+            line = next(ln for ln in texts[probe.CU].splitlines()
+                        if f"static constexpr int {const} = D == {D} ?"
+                        in ln)
+            assert ": (" in line
 
 
 @pytest.mark.parametrize("S,heads,batch,causal", [
@@ -1035,6 +1081,34 @@ def test_flash_tc_pair_grid_at_stablelm_12b(B):
     assert len(heaviest["ring"]) == 8
     assert [len(kts) for _, kts in heaviest["groups"]] == [7, 8]
     assert _tc_smem_bytes(D) == 1024 + 2 * 40960 + 3 * 40960 + 8 * 10
+    assert 2 * (_tc_smem_bytes(D) + 1024) > 228 * 1024
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_flash_tc_pair_grid_at_llama3_8b(B):
+    """At llama3-8b's and minitron-8b's prefill (S = 512, 32 heads on 8,
+    head dim 128): 128-row query tiles, so B = 1 is 128 of them in one
+    wave of the H100's 132 SMs and B = 4 is 512 over 132 persistent
+    blocks (3 or 4 each); under causal masking the heaviest tile (walked
+    first) reads 8 KV tiles of 64 rows, group 0 computing on 7 and group
+    1 on 8; and the kept shared memory fits one block a SM and not two
+    (two 32 KB Q buffers, a ring of 4 stages of 32 KB: 197,728 bytes of
+    the 232,448 a block may have)."""
+    S, H, D = 512, 32, 128
+    blocks = _tc_tiles(S, S, True, 0, D)
+    assert len(blocks) * H * B == 128 * B
+    walks = _tc_pair_items(S, H, B, True)
+    assert len(walks) == min(128 * B, H100_SMS)
+    assert sum(len(w) for w in walks) == 128 * B
+    assert sorted(len(w) for w in walks) == ([1] * 128 if B == 1 else
+                                             [3] * 16 + [4] * 116)
+    heaviest = blocks[-1]
+    assert walks[0][0][0] == len(blocks) - 1
+    assert len(heaviest["ring"]) == 8
+    assert [len(kts) for _, kts in heaviest["groups"]] == [7, 8]
+    assert _tc_stages(D) == 4
+    assert _tc_smem_bytes(D) == 1024 + 2 * 32768 + 4 * 32768 + 8 * 12
+    assert _tc_smem_bytes(D) == 197_728 <= build.MAX_SMEM_BYTES
     assert 2 * (_tc_smem_bytes(D) + 1024) > 228 * 1024
 
 
@@ -1179,7 +1253,7 @@ def _flash_tc_model(q, k, v, *, causal, window):
     scores at -0.7 FLT_MAX, so a tile wholly masked for a row before its
     first visible one is wiped by alpha = 0) with P rounded to bf16 before
     P V.  In the two-tile kernel both groups hold the block's 64 rows and
-    their states are merged; in the pair kernel (head dim 160) group g
+    their states are merged; in the pair kernel (head dims 128, 160) group g
     holds rows 64g..64g + 63 of the 128-row block and writes them alone
     (off the edge tiles it folds the scale into the exponent, one rounding
     fewer, and its 2^x is the hardware's approximation: differences far
@@ -1268,18 +1342,18 @@ def test_flash_tc_model_matches_references(B, S, H, Hkv, D, window,
                                    np.asarray(jo, np.float32), **BF16_TOL)
 
 
+@pytest.mark.parametrize("D", PAIR_HEAD_DIMS)
 @pytest.mark.parametrize("H,Hkv", [(8, 2), (32, 8)])
 @pytest.mark.parametrize("window", [0, 48])
 @pytest.mark.parametrize("S", [100, 129, 200, 257])
-def test_flash_tc_pair_model_matches_references(S, window, H, Hkv):
-    """The pair kernel's arithmetic (head dim 160: 128-row blocks, a
-    64-row tile a warpgroup, 64-row KV tiles, no merge) against
+def test_flash_tc_pair_model_matches_references(S, window, H, Hkv, D):
+    """The pair kernel's arithmetic (head dims 128 and 160: 128-row
+    blocks, a 64-row tile a warpgroup, 64-row KV tiles, no merge) against
     ``ref.flash_attention_ref`` and the JAX package's ``flash_attention``
     (the Pallas kernel in interpret mode) at bf16's tolerance, at lengths
     that end inside a group's tile (100, 200), one row into a block (129)
     and one row past two blocks (257), with GQA groups of 4."""
-    D = 160
-    arrays = [np.random.default_rng(S + H + window).standard_normal(
+    arrays = [np.random.default_rng(S + H + window + D).standard_normal(
         sh).astype(np.float32)
         for sh in ((1, S, H, D), (1, S, Hkv, D), (1, S, Hkv, D))]
     q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
