@@ -217,10 +217,27 @@ exits non-zero:
    p50/p95; the counts, reset just before and read just after, must show
    only flash's short route and decode's CUDA-core route
    (:data:`LM_LAUNCHER_PATHS`) and no CPU-route call.
-8. **serve_online** — ``repro_torch.launch.serve`` with
-   ``examples/serve_online.py``'s arguments over 8 s (rate step at 4 s)
-   on the card: every request must complete; the reduced model runs no
-   kernel of the port, as in the reference.
+8. **examples** — the five ``examples/*_torch.py`` scripts, each run in
+   this process as ``python examples/<name>_torch.py`` runs it
+   (``runpy``, ``sys.argv`` set, its output captured), one line each
+   with its ``seconds``; a nonzero exit raises, and no example may
+   launch a kernel of the port or take a CPU route (the simulated ones
+   touch no device; the reduced configs keep ``use_pallas_kernels``
+   off, as in the reference):
+   * ``quickstart`` — the knapsack's speedup at each of its 8 batches;
+   * ``bench_scenarios`` — the diurnal report (30 s) with both the
+     ``static`` and the ``packrat`` policies;
+   * ``reconfigure_live`` — every request completed, at least one
+     reconfiguration;
+   * ``serve_online`` — ``repro_torch.launch.serve`` at the example's
+     own arguments (16 s, rate step at 8 s) on the card: every request
+     must complete;
+   * ``train_small`` — the example's ~59M-parameter llama-style model
+     (d_model 512, 8 layers, vocab 32768, B = 8, S = 256) on the card,
+     its checkpoint in a fresh temporary directory: 80 steps, whose
+     last logged loss must lie below the first by :data:`TRAIN_MARGIN`,
+     then ``--steps 90``, which must resume from step 80 and finish
+     (:data:`EXAMPLE_TRAIN_STEPS`).
 9. **train** — training, with ``use_pallas_kernels`` off as the
    reference must (the kernels have no backward):
    * reduced gemma3-1b (8 layers, d_model 64, vocab 1024) in fp32, two
@@ -257,10 +274,10 @@ exits non-zero:
      and the whole step (wall, device busy, idle share, launches, top
      kernels).
 
-Each phase prints one JSON line (the model, trace and serve lines with
-the ``seconds`` they took), each with ``elapsed_s``, the seconds since the
-script started.  Then the card's name and power limit, the
-``{"kernels": [...]}`` line
+Each phase prints one JSON line (the model, trace, serve and examples
+phases one per path or example, with the ``seconds`` they took), each
+with ``elapsed_s``, the seconds since the script started.  Then the
+card's name and power limit, the ``{"kernels": [...]}`` line
 (one row per route of each kernel, and the CUDA-core decode again at
 lm-tiny's shape; ``launches_by_path`` includes ``lm-tiny`` and
 ``train-eval``) and,
@@ -379,10 +396,18 @@ LM_TINY_BATCHES = (1, 2, 4, 8)
 ATTN_TINY_SEQS = (16, 8, 4)       # its fidelity rungs' sequence lengths
 MICRO_MLP = {"mlp-tiny": (32, 2), "mlp": (128, 4)}   # width, depth
 MICRO_SECONDS, MICRO_UNITS, MICRO_BATCHES = 4.0, 4, (1, 256)
-# serve_online: examples/serve_online.py's arguments, a shorter run
-SERVE_ONLINE_ARGS = ["--arch", "gemma3-1b", "--duration", "8",
-                     "--rate-step", "4", "--initial-batch", "8",
-                     "--max-batch", "32"]
+# examples: the five examples/*_torch.py scripts, each run in this
+# process as `python examples/<name>_torch.py <argv>` runs it (so the
+# launch counts see it): serve_online at the example's own arguments,
+# train_small at the example's full width on the card, to a checkpoint
+# at EXAMPLE_TRAIN_STEPS[0] and then resumed from it to [1]; its last
+# logged loss of the first run must lie below its first by TRAIN_MARGIN.
+# Its steps are host-bound (~1 s each on the H100), so the card runs 90
+# of the example's 300: 80 is the least first run whose logged losses
+# (every 20 steps, seed 0) fall by the margin
+EXAMPLES = ("quickstart", "bench_scenarios", "reconfigure_live",
+            "serve_online", "train_small")
+EXAMPLE_TRAIN_STEPS = (80, 90)
 # launcher_lm: the launcher's own LM serving mode, lm-tiny on the card
 LM_LAUNCHER_ARGS = ["--execution", "real", "--real-model", "lm-tiny",
                     "--scenario", "steady-poisson", "--duration", "8",
@@ -536,7 +561,8 @@ def main(argv=None) -> int:
     lm_rep = phase_launcher_lm(torch)
     _tally(lm_rep["launches_by_route"], "lm-tiny", launches, by_path)
     emit({"phase": "launcher_lm", **lm_rep})
-    emit({"phase": "serve_online", **phase_serve_online(torch)})
+    for name in EXAMPLES:
+        emit({"phase": "examples", **phase_example(torch, name)})
     train_rep = phase_train(torch)
     _tally(train_rep["eval"]["launches_by_route"], "train-eval", launches,
            by_path)
@@ -2913,37 +2939,143 @@ def phase_launcher_lm(torch):
 
 
 # --------------------------------------------------------------------- #
-# phase 8: the serving launcher (examples/serve_online.py) on the card
+# phase 8: the five examples/*_torch.py scripts on the card
 # --------------------------------------------------------------------- #
-def phase_serve_online(torch):
+def _run_example(name: str, argv) -> tuple:
+    """``python examples/<name>_torch.py <argv>``, run in this process by
+    ``runpy`` with its standard output captured and the counts reset just
+    before and read just after.  A nonzero exit raises; so does any
+    exception of the script."""
     import contextlib
     import io
-    import re
-    from repro_torch.launch import serve
+    import runpy
+    path = ROOT / "examples" / f"{name}_torch.py"
     out = io.StringIO()
+    saved = sys.argv
+    sys.argv = [str(path), *argv]
+    rc = 0
     _reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = serve.main(SERVE_ONLINE_ARGS)
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(path), run_name="__main__")
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    finally:
+        sys.argv = saved
     seconds = time.perf_counter() - t0
     counts, cpu_calls = _counts()
-    lines = out.getvalue().strip().splitlines()
-    for ln in lines:
-        print(ln, flush=True)
-    m = re.match(r"\[serve\] arch=\S+ requests=(\d+) completed=(\d+)",
-                 lines[0] if lines else "")
-    rep = {"argv": SERVE_ONLINE_ARGS, "seconds": seconds,
-           "requests": int(m.group(1)) if m else None,
-           "completed": int(m.group(2)) if m else None,
-           "latency": next((ln for ln in lines if "latency" in ln), None),
-           "reconfigurations": sum("reconfig" in ln for ln in lines) - 1,
-           "launches_by_route": counts, "cpu_calls": cpu_calls}
-    if rc != 0 or m is None or rep["requests"] != rep["completed"]:
-        emit({"phase": "serve_online", **rep})
-        raise AssertionError("serve_online: not every request completed")
-    # reduced configs keep use_pallas_kernels off, as in the reference
-    _check_launches("serve_online", counts, cpu_calls, {})
+    rep = {"example": name, "argv": list(argv), "seconds": seconds,
+           "rc": rc, "launches_by_route": counts, "cpu_calls": cpu_calls}
+    if rc != 0:
+        emit({"phase": "examples", **rep})
+        raise AssertionError(f"examples/{name}_torch.py exited {rc}")
+    # no example runs a kernel of the port: the simulated ones touch no
+    # device, and the reduced configs keep use_pallas_kernels off, as in
+    # the reference
+    _check_launches(f"examples/{name}", counts, cpu_calls, {})
+    return rep, out.getvalue()
+
+
+def phase_example(torch, name: str) -> dict:
+    """One example's line: rc 0, no kernel launch and no CPU-route call,
+    and its own check (see :data:`EXAMPLES`)."""
+    import re
+    if name == "train_small":
+        return _example_train(torch)
+    rep, out = _run_example(name, [])
+    lines = out.strip().splitlines()
+    if name == "bench_scenarios":
+        sc = json.loads(out)["scenarios"]["diurnal"]
+        rep.update({"offered": sc["offered"], "policies": sc["policies"],
+                    "p95_ms": {k: sc[k]["latency_ms"]["p95"]
+                               for k in sc["policies"]},
+                    "p99_ms": {k: sc[k]["latency_ms"]["p99"]
+                               for k in sc["policies"]}})
+        ok = {"static", "packrat"} <= set(sc["policies"])
+    else:
+        for ln in lines:
+            print(ln, flush=True)
+    if name == "quickstart":
+        rows = [re.match(r"\s*(\d+) .*\s(\d+\.\d+)x$", ln) for ln in lines]
+        rep["speedup_by_batch"] = {m.group(1): float(m.group(2))
+                                   for m in rows if m}
+        ok = len(rep["speedup_by_batch"]) == 8
+    if name == "reconfigure_live":
+        m = re.search(r"completed (\d+)/(\d+) requests; "
+                      r"reconfigurations: (\d+)", out)
+        rep.update({"completed": int(m.group(1)) if m else None,
+                    "requests": int(m.group(2)) if m else None,
+                    "reconfigurations": int(m.group(3)) if m else None})
+        ok = m is not None and rep["completed"] == rep["requests"] \
+            and rep["reconfigurations"] >= 1
+    if name == "serve_online":
+        _free(torch)
+        m = re.match(r"\[serve\] arch=\S+ requests=(\d+) completed=(\d+)",
+                     lines[0] if lines else "")
+        rep.update({"requests": int(m.group(1)) if m else None,
+                    "completed": int(m.group(2)) if m else None,
+                    "latency": next((ln for ln in lines if "latency" in ln),
+                                    None),
+                    "reconfigurations": sum("reconfig" in ln
+                                            for ln in lines) - 1})
+        ok = m is not None and rep["requests"] == rep["completed"]
+    rep["ok"] = ok
+    if not ok:
+        emit({"phase": "examples", **rep})
+        raise AssertionError(f"examples/{name}_torch.py: its check failed")
     return rep
+
+
+def _example_train(torch) -> dict:
+    """``train_small_torch.py`` on the card at the example's full width:
+    to a checkpoint at ``EXAMPLE_TRAIN_STEPS[0]``, whose last logged loss
+    must lie below its first by :data:`TRAIN_MARGIN`, then resumed from
+    it to ``EXAMPLE_TRAIN_STEPS[1]``: one line with both runs."""
+    import re
+    import shutil
+    import tempfile
+    step_rx = re.compile(r"\[train\] step= *(\d+) loss=(\S+) tok/s=(\S+) ")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_small_")
+    runs = []
+    t0 = time.perf_counter()
+    try:
+        for steps in EXAMPLE_TRAIN_STEPS:
+            run, out = _run_example("train_small", [
+                "--steps", str(steps), "--ckpt", f"{tmp}/ckpt"])
+            _free(torch)
+            for ln in out.strip().splitlines():
+                print(ln, flush=True)
+            logged = [(int(a), float(b), float(c.replace(",", "")))
+                      for a, b, c in step_rx.findall(out)]
+            params = re.search(r"params=(\S+) ", out)
+            resumed = re.search(r"\[train\] resumed from step (\d+)", out)
+            run.update({
+                "params": params.group(1) if params else None,
+                "resumed_from": int(resumed.group(1)) if resumed else None,
+                "logged_steps": [s for s, _, _ in logged],
+                "losses": [loss for _, loss, _ in logged],
+                "tokens_per_s": [t for _, _, t in logged]})
+            runs.append(run)
+            ok = bool(logged) and logged[-1][0] == steps and all(
+                math.isfinite(loss) for _, loss, _ in logged)
+            if len(runs) == 1:
+                run["loss_drop"] = (logged[0][1] - logged[-1][1]
+                                    if logged else None)
+                ok = ok and resumed is None and len(logged) >= 2 \
+                    and run["loss_drop"] >= TRAIN_MARGIN
+            else:
+                ok = ok and run["resumed_from"] == EXAMPLE_TRAIN_STEPS[0]
+            run["ok"] = ok
+            if not ok:
+                emit({"phase": "examples", "example": "train_small",
+                      "runs": runs})
+                raise AssertionError("examples/train_small_torch.py: its "
+                                     f"check failed at --steps {steps}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"example": "train_small", "seconds": time.perf_counter() - t0,
+            "loss_margin": TRAIN_MARGIN, "runs": runs, "ok": True}
 
 
 # --------------------------------------------------------------------- #

@@ -3,7 +3,10 @@
 * Every module of ``repro_torch`` imports in a fresh interpreter without
   pulling a ``jax*``, ``ml_dtypes`` or ``repro``/``repro.*`` module into
   ``sys.modules`` (the card's machine has none of them).
-* ``chip_smoke.py`` imports neither.
+* ``chip_smoke.py`` imports neither, and nor does a run of any of the
+  five ``examples/*_torch.py`` counterparts (nor ``benchmarks``); the
+  five reference scripts stay as they were (their SHA-256 is recorded
+  here).
 * The pure-Python modules the port copies (configs, core, serving) stay
   byte-identical to their reference files, so the copies cannot drift.
 * The launcher's framework-free functions (the simulated, fast, fabric
@@ -14,11 +17,14 @@
   shares with ``hlo_analysis.py``, and ``launch/report.py``'s tables
   (whose residency column names the H100 in place of v5e).
 * Entry points run on CUDA unless asked: without a card, a call that
-  does not pass ``device="cpu"`` raises instead of running on the CPU.
+  does not pass ``device="cpu"`` raises instead of running on the CPU,
+  and so do the serve and train examples without ``--device cpu``.
 """
 
 import ast
+import hashlib
 import pkgutil
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -50,6 +56,31 @@ LAUNCHER_FUNCTIONS = [
     "run_multimodel_policy", "run_policy", "run_real_policy",
     "run_scenario",
 ]
+
+
+# the reference's examples/ scripts, which the port leaves as they were
+REFERENCE_EXAMPLES = {
+    "quickstart.py":
+        "6919d2297e63adf28917faaf4ffe9104526ee5cadfaaaa93b8fd805e5083dbe2",
+    "bench_scenarios.py":
+        "e4db1090ad7e8ebf1cf9e508a8b4be79ba10d7524f78662dfc94955cd5009dec",
+    "serve_online.py":
+        "9a5ebfdd72ce0fbe043b2489efd21281822f96256ff1072cee011dfc67d60290",
+    "train_small.py":
+        "7fe2cc0a143ea1894c02218fde6a23a8984d3abfb1b80cd041feb07df0d3ad79",
+    "reconfigure_live.py":
+        "26056ebd6a2503aa736660785ba081ebbe05d637a23afd104071a64bc882f9a0",
+}
+# each counterpart's arguments for a short CPU run (train_small: one
+# step, no checkpoint)
+EXAMPLE_ARGV = {
+    "quickstart": [],
+    "bench_scenarios": ["--duration", "2"],
+    "serve_online": ["--device", "cpu", "--duration", "1",
+                     "--rate-step", "0.5", "--max-batch", "8"],
+    "train_small": ["--device", "cpu", "--steps", "1", "--ckpt", ""],
+    "reconfigure_live": [],
+}
 
 
 # definitions the port's step cost and report share with the reference's
@@ -122,6 +153,40 @@ def test_chip_smoke_imports_no_jax_or_reference():
     for name in imported:
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), name
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_ARGV))
+def test_example_counterpart_runs_without_jax_reference_or_benchmarks(name):
+    """``python examples/<name>_torch.py`` as ``runpy`` runs it: exit 0,
+    and no ``jax*``, ``ml_dtypes``, ``repro``/``repro.*`` or
+    ``benchmarks`` module in ``sys.modules`` afterwards."""
+    path = ROOT / "examples" / f"{name}_torch.py"
+    code = (
+        "import contextlib, io, runpy, sys\n"
+        f"sys.argv = [{str(path)!r}, *{EXAMPLE_ARGV[name]!r}]\n"
+        "rc = 0\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    try:\n"
+        "        runpy.run_path(sys.argv[0], run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        rc = e.code or 0\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m in ('jax', 'repro', 'benchmarks')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'repro.',\n"
+        "                              'ml_dtypes', 'benchmarks.')))\n"
+        "print(rc, bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
+                              "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []"
+
+
+@pytest.mark.parametrize("name", sorted(REFERENCE_EXAMPLES))
+def test_reference_example_is_unchanged(name):
+    digest = hashlib.sha256((ROOT / "examples" / name).read_bytes())
+    assert digest.hexdigest() == REFERENCE_EXAMPLES[name], name
 
 
 @pytest.mark.parametrize("package", sorted(COPIED))
@@ -201,7 +266,21 @@ def test_entry_points_raise_without_cuda():
                                           make_micro_runner)
     from repro_torch.models.serve_lm import LmEngine, make_lm_engine
     from repro_torch.serving.scenarios import get_scenario
-    for call in (lambda: LmEngine(), lambda: make_lm_engine("lm-tiny"),
+
+    def example(name, *argv):
+        """``python examples/<name>_torch.py <argv>``, in this process."""
+        path = str(ROOT / "examples" / f"{name}_torch.py")
+        old = sys.argv
+        sys.argv = [path, *argv]
+        try:
+            runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = old
+
+    for call in (lambda: example("serve_online"),
+                 lambda: example("train_small", "--steps", "1",
+                                 "--ckpt", ""),
+                 lambda: LmEngine(), lambda: make_lm_engine("lm-tiny"),
                  lambda: init_params(GEMMA3_1B.reduced()),
                  lambda: make_micro_runner("mlp-tiny"),
                  lambda: make_micro_runner("attn-tiny"),
