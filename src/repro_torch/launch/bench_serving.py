@@ -537,7 +537,7 @@ def run_lm_policy(policy: str, arrivals: List[float], *, factory,
     else:
         raise ValueError(f"unknown policy {policy!r}")
 
-    plane = RealPlane(factory, units)
+    plane = RealPlane(factory, units, spans=True)
     metrics = MetricsCollector(slo_by_model=slo_by_phase)
     drain = max(REAL_DRAIN_MIN_S, REAL_DRAIN_FACTOR * duration)
     servers: Dict[str, PackratServer] = {}
@@ -575,9 +575,12 @@ def run_lm_policy(policy: str, arrivals: List[float], *, factory,
     # decode-step continuation chain: ids disjoint from prompt ids
     rid = itertools.count(1_000_000_000)
 
-    def _next_decode(steps_left: int) -> Request:
+    def _next_decode(steps_left: int, cause: int) -> Request:
         req = Request(next(rid), plane.now, model_id=PHASE_DECODE,
                       phase=PHASE_DECODE, steps_left=steps_left)
+        if plane.spans is not None:
+            # the step's span record names the request that made it
+            plane.spans.open_request(req, cause)
         metrics.on_request(req)
         return req
 
@@ -585,13 +588,15 @@ def run_lm_policy(policy: str, arrivals: List[float], *, factory,
         # cross-phase hand-off: submit on the decode dispatcher, return
         # None so nothing re-enters the prefill queue
         if decode_steps > 0:
-            servers[PHASE_DECODE].submit(_next_decode(decode_steps))
+            servers[PHASE_DECODE].submit(
+                _next_decode(decode_steps, cause=resp.request.id))
         return None
 
     def decode_done(resp) -> Optional[Request]:
         # same-dispatcher re-enqueue until EOS/max-len
         if resp.request.steps_left > 1:
-            return _next_decode(resp.request.steps_left - 1)
+            return _next_decode(resp.request.steps_left - 1,
+                                cause=resp.request.id)
         return None
 
     servers[PHASE_PREFILL].dispatcher.continuation = prefill_done
@@ -630,6 +635,9 @@ def run_lm_policy(policy: str, arrivals: List[float], *, factory,
     rep["runner_cache"] = plane.runner_report()
     rep["planning"] = planning_report(
         [servers[p].optimizer for p in PHASES])
+    if plane.spans is not None:
+        # the port's own key: every request's and batch's span record
+        rep["spans"] = plane.spans.export()
     return rep
 
 

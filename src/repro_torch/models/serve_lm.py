@@ -41,7 +41,10 @@ therefore runs on a ``torch.cuda.Stream`` of its own and synchronizes
 only that stream: a device-wide ``torch.cuda.synchronize()`` would also
 wait on other workers' batches and charge them to this one.  A prefill
 cell keeps one stream per worker thread that calls it; a decode cell
-keeps one stream, since its lock lets one step run at a time.
+keeps one stream, since its lock lets one step run at a time.  Each cell
+marks its batch's span record (``serving/spans.py``): the decode cell
+once it holds its lock, both just before the stream wait, so a call
+splits into lock wait, host enqueue and stream wait.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from ..configs.base import ShapeConfig
 from ..configs.gemma3_1b import GEMMA3_1B
 from ..core.knapsack import next_power_of_two
 from ..kernels import build as kernel_build
+from ..serving.spans import mark
 from .lm import Model, build_model, input_specs
 
 LM_MODELS = ("lm-tiny",)
@@ -208,6 +212,7 @@ class LmEngine:
                     stream = local.stream = engine._cell_stream()
                 with engine._on(stream):
                     engine.prefill(**batch)
+                mark("enqueued")
                 engine._wait(stream)
 
             run()                                        # build + warm here
@@ -241,9 +246,11 @@ class LmEngine:
 
             def run() -> None:
                 with lock:
+                    mark("locked")
                     cache, pos = engine._resident[b]
                     with engine._on(stream):
                         engine.decode_step(cache, tokens, pos)
+                    mark("enqueued")
                     engine._wait(stream)
                     nxt = s0 + (pos - s0 + 1) % (engine.max_seq - s0)
                     engine._resident[b] = (cache, nxt)

@@ -152,6 +152,8 @@ class Dispatcher:
     # request path
     # ------------------------------------------------------------------ #
     def on_request(self, req: Request) -> None:
+        if self.plane.spans is not None:
+            self.plane.spans.submitted(req, self.loop.now)
         self.queue.append(req)
         self.policy.on_arrival(req)
 
@@ -217,8 +219,8 @@ class Dispatcher:
             return None
         return min(live, key=lambda w: w.busy_until)
 
-    def _submit(self, sub: List[Request], threads: int, redispatch: int
-                ) -> None:
+    def _submit(self, sub: List[Request], threads: int, redispatch: int,
+                trigger: str = "full") -> None:
         worker = self._pick_instance(threads)
         if worker is None:
             # no live worker: retry after a timeout.  The ids are marked
@@ -226,13 +228,15 @@ class Dispatcher:
             # this retry loop still owns a deliverable copy.
             self._deferred_ids.update(r.id for r in sub)
             self.loop.schedule(self.dcfg.batch_timeout,
-                               lambda: self._submit(sub, threads, redispatch))
+                               lambda: self._submit(sub, threads, redispatch,
+                                                    trigger=trigger))
             return
         self._deferred_ids.difference_update(r.id for r in sub)
-        self._execute(worker, sub, threads, redispatch)
+        self._execute(worker, sub, threads, redispatch, trigger=trigger)
 
     def _execute(self, worker: WorkerInstance, sub: List[Request],
-                 threads: int, redispatch: int) -> None:
+                 threads: int, redispatch: int, trigger: str = "full"
+                 ) -> None:
         """Run one sub-batch on ``worker`` via the execution plane: the
         plane delivers the completion callback (virtual-time event or
         wall-clock thread completion) and the dispatcher schedules a
@@ -241,6 +245,13 @@ class Dispatcher:
         n_live = len(self._live())
         if self.peer_live is not None:
             n_live += self.peer_live()
+        # the batch's span record: fired now, why ("full", "coalesce" or
+        # "redispatch"), and which requests it carries
+        span = None
+        if self.plane.spans is not None:
+            span = self.plane.spans.open_batch(
+                sub, "redispatch" if redispatch > 0 else trigger,
+                self.loop.now)
 
         def complete(observed, worker=worker, sub=sub, redispatch=redispatch):
             for r in sub:
@@ -272,6 +283,8 @@ class Dispatcher:
                     batch_size=len(sub), instance_id=worker.id,
                     redispatched=redispatch > 0,
                     model_id=worker.model_id)
+                if span is not None:
+                    self.plane.spans.delivered(r, span, resp.completion)
                 self.on_response(resp)
                 if self.continuation is not None:
                     nxt = self.continuation(resp)
@@ -297,7 +310,8 @@ class Dispatcher:
         for r in sub:
             self._inflight_ids[r.id] = self._inflight_ids.get(r.id, 0) + 1
         expected = self.plane.execute_batch(
-            worker, len(sub), n_live_instances=n_live, on_complete=complete)
+            worker, len(sub), n_live_instances=n_live, on_complete=complete,
+            span=span)
         deadline = self.loop.now + expected * self.dcfg.straggler_factor
         for r in sub:
             self._retire_at[r.id] = max(self._retire_at.get(r.id, 0.0),

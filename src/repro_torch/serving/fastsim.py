@@ -846,7 +846,7 @@ class FastContinuousPolicy(ContinuousPolicy):
         for wid in sorted(touched):
             self._feed(touched[wid])
 
-    def _fire(self, worker, n: int) -> None:
+    def _fire(self, worker, n: int, trigger: str = "full") -> None:
         d = self.d
         wq = worker.queue
         ids, arrs = wq.pop_slice(min(n, len(wq)))

@@ -48,6 +48,7 @@ from ..core.knapsack import next_power_of_two
 from ..core.profiler import MeasuredProfiler, Profile, ProfileSpec
 from .instance import WorkerInstance
 from .simulator import EventLoop
+from .spans import SpanLog
 
 # a zero-arg callable that executes one batch to completion (blocking)
 BatchRunner = Callable[[], None]
@@ -69,6 +70,8 @@ class ExecutionPlane:
 
     name = "abstract"
     fidelity = 0            # current fidelity rung (0 = full fidelity)
+    # the span log (serving/spans.py); only RealPlane keeps one
+    spans: Optional[SpanLog] = None
 
     # ------------------------------------------------------------------ #
     # time (EventLoop-compatible)
@@ -91,7 +94,8 @@ class ExecutionPlane:
     # ------------------------------------------------------------------ #
     def execute_batch(self, worker: WorkerInstance, n_items: int, *,
                       n_live_instances: int = 1, total_units: int = 0,
-                      on_complete: Callable[[float], None]) -> float:
+                      on_complete: Callable[[float], None],
+                      span: Optional[list] = None) -> float:
         raise NotImplementedError
 
     def release_worker(self, worker: WorkerInstance) -> None:
@@ -171,7 +175,8 @@ class SimulatedPlane(ExecutionPlane):
 
     def execute_batch(self, worker: WorkerInstance, n_items: int, *,
                       n_live_instances: int = 1, total_units: int = 0,
-                      on_complete: Callable[[float], None]) -> float:
+                      on_complete: Callable[[float], None],
+                      span: Optional[list] = None) -> float:
         now = self.loop.now
         busy_before = worker.busy_until
         done_t = worker.process(n_items, now,
@@ -205,7 +210,7 @@ class RealPlane(ExecutionPlane):
 
     def __init__(self, make_runner: RunnerFactory, total_units: int, *,
                  clock: Callable[[], float] = time.perf_counter,
-                 max_runners: int = 32) -> None:
+                 max_runners: int = 32, spans: bool = False) -> None:
         if total_units < 1:
             raise ValueError(f"total_units must be >= 1, got {total_units}")
         if max_runners < 1:
@@ -241,9 +246,9 @@ class RealPlane(ExecutionPlane):
         self._executors: Dict[int, ThreadPoolExecutor] = {}
         self._units_cv = threading.Condition()
         self._units_free = total_units
-        self.inflight = 0
-        self.batches_executed = 0
         self._closed = False
+        # request and batch records on this plane's clock, if asked for
+        self.spans = SpanLog(clock) if spans else None
 
     # ------------------------------------------------------------------ #
     # time
@@ -251,6 +256,8 @@ class RealPlane(ExecutionPlane):
     def _start(self) -> None:
         if self._epoch is None:
             self._epoch = self._clock()
+            if self.spans is not None:
+                self.spans.epoch = self._epoch
 
     @property
     def now(self) -> float:
@@ -389,7 +396,8 @@ class RealPlane(ExecutionPlane):
 
     def execute_batch(self, worker: WorkerInstance, n_items: int, *,
                       n_live_instances: int = 1, total_units: int = 0,
-                      on_complete: Callable[[float], None]) -> float:
+                      on_complete: Callable[[float], None],
+                      span: Optional[list] = None) -> float:
         if self._closed:
             raise RuntimeError("plane is closed")
         self._start()
@@ -412,26 +420,33 @@ class RealPlane(ExecutionPlane):
                           phase=self._worker_phase(worker),
                           fidelity=self.fidelity)
         claim = min(worker.threads, self.total_units)
-        self.inflight += 1
 
         def job() -> None:
+            if span is not None:
+                self.spans.start(span)
             self._acquire_units(claim)
             try:
                 t0 = self._clock()
+                if span is not None:
+                    self.spans.enter(span, t0)
                 run()
                 observed = self._clock() - t0
+                if span is not None:
+                    self.spans.leave(span, t0 + observed)
             finally:
                 self._release_units(claim)
             self._completions.put(
-                lambda: self._complete(worker, observed, on_complete))
+                lambda: self._complete(worker, observed, on_complete,
+                                       span=span))
 
         self._executor_for(worker).submit(job)
         return expected_done
 
     def _complete(self, worker: WorkerInstance, observed: float,
-                  on_complete: Callable[[float], None]) -> None:
-        self.inflight -= 1
-        self.batches_executed += 1
+                  on_complete: Callable[[float], None],
+                  span: Optional[list] = None) -> None:
+        if span is not None:
+            self.spans.batch_done(span, self.now)
         worker.finish_batch(self.now, observed)
         on_complete(observed)
 

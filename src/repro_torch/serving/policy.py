@@ -188,11 +188,14 @@ class BatchSyncPolicy(DispatchPolicy):
             d._queue_highwater = max(d._queue_highwater, len(d.queue))
             n = min(len(d.queue), d.batch_size)
             items = [d.queue.popleft() for _ in range(n)]
-            self._partition_and_submit(items)
+            # a partial batch goes out because the timeout expired
+            self._partition_and_submit(
+                items, trigger="full" if n >= d.batch_size else "coalesce")
             d.batches_dispatched += 1
             force_partial = False
 
-    def _partition_and_submit(self, items: List[Request]) -> None:
+    def _partition_and_submit(self, items: List[Request],
+                              trigger: str = "full") -> None:
         """Split one aggregate batch across instances per the ⟨i,t,b⟩ config."""
         d = self.d
         cursor = 0
@@ -202,7 +205,7 @@ class BatchSyncPolicy(DispatchPolicy):
                     return
                 sub = items[cursor:cursor + group.b]
                 cursor += group.b
-                d._submit(sub, group.t, redispatch=0)
+                d._submit(sub, group.t, redispatch=0, trigger=trigger)
         while cursor < len(items):
             # oversized leftovers: slice with the group whose b best fits
             # the remainder (smallest b covering it, else the largest b)
@@ -212,7 +215,7 @@ class BatchSyncPolicy(DispatchPolicy):
                      else max(d.config.groups, key=lambda g: g.b))
             sub = items[cursor:cursor + group.b]
             cursor += group.b
-            d._submit(sub, group.t, redispatch=0)
+            d._submit(sub, group.t, redispatch=0, trigger=trigger)
 
 
 # --------------------------------------------------------------------- #
@@ -371,13 +374,15 @@ class ContinuousPolicy(DispatchPolicy):
         if worker.failed or not worker.queue or not worker.is_idle(d.loop.now):
             return   # went busy meanwhile; the completion hook re-feeds
         d.timeouts_fired += 1
-        self._fire(worker, min(len(worker.queue), max(1, worker.batch)))
+        self._fire(worker, min(len(worker.queue), max(1, worker.batch)),
+                   trigger="coalesce")
 
-    def _fire(self, worker: WorkerInstance, n: int) -> None:
+    def _fire(self, worker: WorkerInstance, n: int,
+              trigger: str = "full") -> None:
         d = self.d
         sub = [worker.queue.popleft() for _ in range(min(n, len(worker.queue)))]
         d.batches_dispatched += 1
-        d._execute(worker, sub, worker.threads, redispatch=0)
+        d._execute(worker, sub, worker.threads, redispatch=0, trigger=trigger)
 
 
 POLICY_NAMES = ("sync", "continuous")

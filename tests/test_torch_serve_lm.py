@@ -206,7 +206,8 @@ def _key_tree(rep, depth=2):
 def test_run_lm_policy_report_keys_match_reference(engine):
     """Both policies serve a short trace to completion, and the report has
     exactly the keys the reference's run_lm_policy produces on the same
-    trace and profiles."""
+    trace and profiles, beside the port's own ``spans`` (the span log's
+    export, ``serving/spans.py``), which is there and set aside."""
     pytest.importorskip("jax")
     from repro.launch import bench_serving as jbench
     from repro.models.serve_lm import LmEngine as JaxLmEngine
@@ -232,6 +233,8 @@ def test_run_lm_policy_report_keys_match_reference(engine):
         assert got["phases"][PHASE_PREFILL]["completed"] == len(arrivals)
         assert got["phases"][PHASE_DECODE]["completed"] == 2 * len(arrivals)
         assert got["incomplete"] == 0 and want["incomplete"] == 0
+        assert "spans" in got and "spans" not in want
+        got = {k: v for k, v in got.items() if k != "spans"}
         assert _key_tree(got) == _key_tree(want)
     # the CPU engine went through the attention kernels' plain versions
     # (lm-tiny has no recurrent layer)
